@@ -1,0 +1,176 @@
+"""Sampling CLI of the port (counterpart of `sin3dm_tpu/cli/sample.py`):
+
+    python -m sin3dm_tpu_torch.cli.sample --tag T --vox [--n_samples N]
+        [--use_ddim true --timestep_respacing ddim100] [--resize 1 1 1.5]
+        [--device cuda|cpu]
+
+Draws triplane samples from the trained diffusion model, writes one
+`feat.npz` per sample under `<tag>/<output>/<j:03d>/`, and with `--vox`
+decodes each to `r{reso}_voxel.npz`.  Runs on the card unless
+`--device cpu` is given; asking for the card where there is none raises.
+
+Numerics follow the JAX package's accelerator defaults: a bf16 UNet
+torso with fp32 GroupNorm statistics (`SIN3DM_SAMPLE_DTYPE=train` keeps
+the args.json dtype) and bf16 operands in the decode heads
+(`SIN3DM_DECODE_BF16=0` keeps fp32).  The mesh path (no `--vox`),
+data-parallel and spatial sampling and inpainting are later slices.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from ..core import checkpoint as ckpt
+from ..core import config as cfgmod
+from ..core.triplane import Triplane, load_triplane_npz, save_triplane_npz
+
+
+def resolve_device(name: str, index: int = 0) -> torch.device:
+    """`cuda` (the default) or `cpu`.  Never falls back to the CPU."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise ValueError(f"unknown device {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return torch.device("cuda", index)
+
+
+def _check_slice(args) -> None:
+    where = "not ported yet (ROADMAP.md, A: sampling options)"
+    if int(getattr(args, "sample_devices", 1)) != 1:
+        raise NotImplementedError(
+            f"--sample_devices: data-parallel sampling is {where}")
+    if int(getattr(args, "sample_spatial", 1)) != 1:
+        raise NotImplementedError(
+            f"--sample_spatial: plane-spatial sharding is {where}")
+    if getattr(args, "inpaint", False):
+        raise NotImplementedError(f"--inpaint: masked generation is {where}")
+
+
+def _unet_config(args):
+    ucfg = cfgmod.unet_config_from_args(args)
+    if os.environ.get("SIN3DM_SAMPLE_DTYPE", "bf16") == "bf16":
+        ucfg = ucfg._replace(compute_dtype=torch.bfloat16, fast_norm=True)
+        print("sampling in bfloat16 + fast_norm (set "
+              "SIN3DM_SAMPLE_DTYPE=train for the args.json dtype)")
+    return ucfg
+
+
+def build_model(args, device: torch.device):
+    """(model, tables, diffusion config): the EMA UNet as a
+    `(x_t, t_model) -> Triplane` function on `device`, and the (respaced)
+    schedule's tables there."""
+    from ..compat.from_jax import unet_params_from_jax
+    from ..diffusion.gaussian import tables_to_device
+    from ..models.unet import unet_apply
+
+    ucfg = _unet_config(args)
+    model_path = cfgmod.diffusion_model_path(args.tag, args.ema_rate,
+                                             args.diff_n_iters)
+    tree, _ = ckpt.load_tree(model_path)
+    params = unet_params_from_jax(tree, device)
+
+    respacing = args.timestep_respacing if args.use_ddim else ""
+    sched = cfgmod.schedule_from_args(args, respacing=respacing)
+    tables = tables_to_device(sched.tables_f32(), device)
+    dcfg = cfgmod.diffusion_config_from_args(args)
+    return (lambda x, t: unet_apply(params, ucfg, x, t)), tables, dcfg
+
+
+def _build_sampler(args):
+    """(sampler, channels, sizes, device): the reverse chain over the EMA
+    checkpoint, plane sizes from the tag's feat.npz times --resize."""
+    from ..diffusion.sampling import make_sampler
+
+    _check_slice(args)
+    device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
+    feat = load_triplane_npz(cfgmod.encoding_feat_path(args.tag))
+    C = feat.channels
+    H, W, D = feat.sizes
+    H = int(H * args.resize[0])
+    W = int(W * args.resize[1])
+    D = int(D * args.resize[2])
+    print("H, W, D:", H, W, D)
+
+    model, tables, dcfg = build_model(args, device)
+    sampler = make_sampler(model, tables, dcfg, use_ddim=args.use_ddim,
+                           device=device)
+    return sampler, C, (H, W, D), device
+
+
+def _save_samples(result_dir: str, samples: Triplane, start: int,
+                  count: int):
+    paths = []
+    for j in range(count):
+        path = os.path.join(result_dir, f"{start + j:03d}", "feat.npz")
+        save_triplane_npz(path, samples.map(lambda p: p[j]))
+        paths.append(path)
+    return paths
+
+
+def sample_diffusion(args):
+    """Draw all samples and save one feat.npz each; returns the paths."""
+    sampler, C, sizes, _ = _build_sampler(args)
+    result_dir = os.path.join(args.tag, args.output)
+    os.makedirs(result_dir, exist_ok=True)
+    seed = int(getattr(args, "seed", 0))
+    batch_size = max(1, min(args.diff_batch_size, args.n_samples))
+    paths = []
+    for i in range(0, args.n_samples, batch_size):
+        bs = min(batch_size, args.n_samples - i)
+        samples = sampler(seed, i, bs, C, sizes)
+        paths.extend(_save_samples(result_dir, samples, i, bs))
+    return paths
+
+
+def _make_trainer(args, device):
+    from ..training.ae import AETrainer
+    trainer = AETrainer(cfgmod.encoding_log_dir(args.tag),
+                        cfgmod.ae_config_from_args(args), device)
+    trainer.load_ckpt("final")
+    return trainer
+
+
+def decode(args, paths):
+    """Decode saved feat.npz files to voxel grids (--vox)."""
+    if not args.vox:
+        raise NotImplementedError("mesh path: ROADMAP slice 2")
+    device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
+    trainer = _make_trainer(args, device)
+    for p in paths:
+        trainer.decode_voxel(os.path.dirname(p), load_triplane_npz(p),
+                             args.reso)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    """Sample, then decode.  Returns {"paths", "sample_seconds",
+    "decode_seconds"} (host clock, each phase ending in a device sync)."""
+    args = cfgmod.sample_args(argv)
+    if not args.vox:
+        raise NotImplementedError("mesh path: ROADMAP slice 2")
+    device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
+    t0 = time.perf_counter()
+    paths = sample_diffusion(args)
+    _sync(device)
+    t1 = time.perf_counter()
+    decode(args, paths)
+    _sync(device)
+    t2 = time.perf_counter()
+    print(f"sampled {len(paths)} in {t1 - t0:.3f} s, decoded in "
+          f"{t2 - t1:.3f} s")
+    return {"paths": paths, "sample_seconds": t1 - t0,
+            "decode_seconds": t2 - t1}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,153 @@
+"""Core NN primitives on channels-last tensors (counterpart of
+`sin3dm_tpu/core/nn.py`).
+
+Parameters keep JAX's layouts: conv weights `[kh, kw, Cin, Co]`, linear
+weights `[in, out]`.  Semantics follow the JAX functions line for line:
+GroupNorm32 statistics in float32, the sinusoidal embedding cos-first,
+bilinear resizes with half-pixel centres and no antialias, 2x average
+pooling VALID (an odd size drops its last row/column).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(p: Dict, x: torch.Tensor, padding="SAME") -> torch.Tensor:
+    """Stride-1 conv of `[B, H, W, C]` with an HWIO weight.  1x1 convs
+    are a dot over the channel axis, as on the JAX side; other sizes go
+    to `F.conv2d` (the 5x5 AE convs; the UNet's 3x3 convs take the
+    hand-written kernel in `ops/fused_conv.py` instead)."""
+    w = p["w"].to(x.dtype)
+    kh, kw = w.shape[0], w.shape[1]
+    if kh == 1 and kw == 1:
+        y = x @ w[0, 0]
+    else:
+        if padding != "SAME":
+            raise ValueError(f"unsupported padding {padding!r}")
+        y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1),
+                     padding=(kh // 2, kw // 2))
+        y = _nhwc(y)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, gamma=None,
+                  beta=None) -> torch.Tensor:
+    """Per-sample, per-channel normalisation over the spatial dims of
+    `[..., H, W, C]` with biased variance (torch `InstanceNorm2d`)."""
+    mean = x.mean(dim=(-3, -2), keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=(-3, -2), keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma.to(y.dtype) + beta.to(y.dtype)
+    return y
+
+
+def _group_stats(x: torch.Tensor, num_groups: int, eps: float):
+    """fp32 per-group (mean, rstd) of `[B, H, W, C]`, each `[B, g]`."""
+    *lead, H, W, C = x.shape
+    if C % num_groups != 0:
+        raise ValueError(f"GroupNorm32 needs channels divisible by "
+                         f"{num_groups}, got {C}")
+    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).float()
+    dims = (-4, -3, -1)
+    mean = xg.mean(dim=dims)
+    var = ((xg - mean[..., None, None, :, None]) ** 2).mean(dim=dims)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm32(p: Dict, x: torch.Tensor, num_groups: int = 32,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm(32, C) computed in float32, cast back to x.dtype."""
+    *lead, H, W, C = x.shape
+    mean, rstd = _group_stats(x, num_groups, eps)
+    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).float()
+    xg = (xg - mean[..., None, None, :, None]) * rstd[..., None, None, :,
+                                                      None]
+    y = xg.reshape(*lead, H, W, C) * p["g"] + p["b"]
+    return y.to(x.dtype)
+
+
+def group_norm32_film_silu(p: Dict, x: torch.Tensor, film=None,
+                           num_groups: int = 32,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm32 -> optional FiLM (scale, shift) -> SiLU with float32
+    statistics folded into per-channel (A, B), applied in x.dtype.
+
+    x: `[B, H, W, C]`; film: optional (scale, shift) each `[B, 1, 1, C]`.
+    """
+    dt = x.dtype
+    *lead, H, W, C = x.shape
+    mean, rstd = _group_stats(x, num_groups, eps)
+    rep = C // num_groups
+    mean_c = mean.repeat_interleave(rep, dim=-1)
+    rstd_c = rstd.repeat_interleave(rep, dim=-1)
+    A = rstd_c * p["g"]
+    B = p["b"] - mean_c * A
+    A = A.reshape(*lead, 1, 1, C)
+    B = B.reshape(*lead, 1, 1, C)
+    if film is not None:
+        scale, shift = film
+        one_p = 1.0 + scale.float()
+        A = A * one_p
+        B = B * one_p + shift.float()
+    return silu(x * A.to(dt) + B.to(dt))
+
+
+def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x average pool of `[B, H, W, C]`, VALID."""
+    return _nhwc(F.avg_pool2d(_nchw(x), 2, 2))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of `[B, H, W, C]` or `[H, W, C]`: half-pixel
+    centres (align_corners=False), no antialias, either direction."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    y = F.interpolate(_nchw(x), size=tuple(int(s) for s in out_hw),
+                      mode="bilinear", align_corners=False, antialias=False)
+    y = _nhwc(y)
+    return y[0] if squeeze else y
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    H, W = x.shape[-3], x.shape[-2]
+    return resize_bilinear(x, (H * 2, W * 2))
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embeddings, cos first.  timesteps `[N]` -> `[N, dim]`
+    float32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb

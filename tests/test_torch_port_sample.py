@@ -1,0 +1,172 @@
+"""The slice as a whole: the port's `cli.sample --vox` on the committed
+towerruins tag, on the CPU at a small size, against the JAX package; and
+the port's guards (no JAX import, the card by default, no fallback)."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sin3dm_tpu.core import checkpoint as jckpt
+from sin3dm_tpu.core.triplane import Triplane as JT
+from sin3dm_tpu.core.triplane import load_triplane_npz as jload
+from sin3dm_tpu.diffusion.gaussian import DiffusionConfig
+from sin3dm_tpu.diffusion.sampling import ddim_sample_loop
+from sin3dm_tpu.diffusion.schedule import make_schedule
+from sin3dm_tpu.models import autoencoder as jae
+from sin3dm_tpu.models.unet import UNetConfig, init_unet, unet_apply
+from sin3dm_tpu.training.ae import AETrainer, AETrainerConfig
+from sin3dm_tpu_torch.cli import sample as cli
+from sin3dm_tpu_torch.core.triplane import Triplane as TT
+
+torch.set_num_threads(2)
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+TAG = os.path.join(ROOT, "checkpoints", "towerruins")
+SMALL = ["--resize", "0.125", "0.125", "0.125", "--use_ddim", "true",
+         "--timestep_respacing", "ddim4", "--reso", "32"]
+
+
+def _argv(out, *extra):
+    return ["--tag", TAG, "--vox", "--device", "cpu", "--output", str(out),
+            *SMALL, *extra]
+
+
+def test_cli_vox_cpu_writes_feats_and_voxels(tmp_path):
+    res = cli.main(_argv(tmp_path, "--n_samples", "2"))
+    assert len(res["paths"]) == 2
+    for j in range(2):
+        d = tmp_path / f"{j:03d}"
+        with np.load(d / "feat.npz") as f:
+            shapes = {k: f[k].shape for k in f.files}
+            assert all(np.isfinite(f[k]).all() for k in f.files)
+        assert shapes == {"feat_xy": (12, 11, 16), "feat_xz": (12, 11, 11),
+                          "feat_yz": (12, 16, 11)}
+        with np.load(d / "r32_voxel.npz") as v:
+            grid = v["vox_grid"]
+        assert grid.dtype == bool and grid.shape == (22, 32, 22)
+        assert 0.0 < grid.mean() < 0.5
+
+
+def test_feats_match_jax_ddim_loop(monkeypatch):
+    """Injected initial noise, fp32 (SIN3DM_SAMPLE_DTYPE=train): the
+    port's sampler == JAX's ddim_sample_loop on the same weights, within
+    1e-4 of the feature scale (4 full-width UNet calls)."""
+    monkeypatch.setenv("SIN3DM_SAMPLE_DTYPE", "train")
+    args = cli.cfgmod.sample_args(_argv("unused"))
+    sampler, C, sizes, device = cli._build_sampler(args)
+    assert device.type == "cpu" and sizes == (11, 16, 11) and C == 12
+    H, W, D = sizes
+    rng = np.random.default_rng(0)
+    noise = [rng.standard_normal(s).astype(np.float32)
+             for s in ((2, H, W, C), (2, H, D, C), (2, W, D, C))]
+    got = sampler(0, 0, 2, C, sizes, noise=TT(*map(torch.from_numpy, noise)))
+
+    cfg = UNetConfig()
+    params, _ = jckpt.load_pytree(
+        os.path.join(TAG, "diffusion", "ema_0.9999_025000.pt"),
+        init_unet(jax.random.PRNGKey(0), cfg))
+    tables = {k: jnp.asarray(v) for k, v in
+              make_schedule("linear", 1000, "ddim4").tables_f32().items()}
+
+    @jax.jit
+    def run(p, x0):
+        return ddim_sample_loop(lambda x, t: unet_apply(p, cfg, x, t),
+                                tables, DiffusionConfig(),
+                                jax.random.PRNGKey(0), 2, C, sizes,
+                                noise=x0, eta=0.0)
+
+    want = run(params, JT(*map(jnp.asarray, noise)))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
+
+
+def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
+    """From the feat.npz the port's CLI wrote, the port's voxel grid ==
+    JAX's `AETrainer.decode_voxel`, except voxels with |sdf| < 1e-5
+    (fp32 heads, SIN3DM_DECODE_BF16=0)."""
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    cli.main(_argv(tmp_path / "port", "--n_samples", "1"))
+    feat_path = tmp_path / "port" / "000" / "feat.npz"
+    with np.load(tmp_path / "port" / "000" / "r32_voxel.npz") as v:
+        got = v["vox_grid"]
+
+    trainer = AETrainer(os.path.join(TAG, "encoding"), jae.AEConfig(),
+                        AETrainerConfig())
+    trainer.load_ckpt("final")
+    feat = jload(str(feat_path))
+    trainer.decode_voxel(str(tmp_path / "jax"), feat, 32)
+    with np.load(tmp_path / "jax" / "r32_voxel.npz") as v:
+        want = v["vox_grid"]
+    H, W = feat.xy.shape[0], feat.xy.shape[1]
+    aabb = trainer._resize_aabb((H, W, feat.xz.shape[1]))
+    sdf = trainer.decode_grid(feat, 32, aabb=aabb)[..., 0]
+    assert got.shape == want.shape == sdf.shape
+    settled = np.abs(sdf) >= 1e-5
+    assert settled.mean() > 0.99
+    np.testing.assert_array_equal(got[settled], want[settled])
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sin3dm_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "assert len(names) >= 20, names\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'sin3dm_tpu' or "
+        "m.startswith('sin3dm_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """`chip_smoke.py` exits non-zero and prints no result without a card,
+    from the repo and from a directory that holds nothing else."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke.py runs there")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    for script in (os.path.join(ROOT, "chip_smoke.py"), str(alone)):
+        out = subprocess.run([sys.executable, script],
+                             cwd=os.path.dirname(script),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_cli_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs there")
+    argv = ["--tag", TAG, "--vox", "--output", str(tmp_path), *SMALL]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--sample_devices", "2"], "data-parallel"),
+    (["--inpaint", "true"], "masked generation"),
+])
+def test_options_of_later_slices_raise(tmp_path, extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(_argv(tmp_path, *extra))
+
+
+def test_mesh_path_is_a_later_slice(tmp_path):
+    argv = [a for a in _argv(tmp_path) if a != "--vox"]
+    with pytest.raises(NotImplementedError, match="mesh path"):
+        cli.main(argv)
