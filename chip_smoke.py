@@ -12,13 +12,24 @@ of this repository.  Phases, each printing its results:
 3. kernels against their plain versions on the card at the main path's
    shapes, in bf16 and fp32, with error, tolerance and median times of
    kernel, plain version and a library yardstick (cuDNN conv + epilogue
-   for K1, a bf16 torch.matmul chain for K2) that the port never calls;
+   for K1 and K1′, a bf16 torch.matmul chain for K2) that the port never
+   calls: K1's default form, then K1′ (act, act+stats, act+skip+stats)
+   at every shape where the opt-in configurations run it;
 4. main path: `cli.sample.main(--tag checkpoints/towerruins --vox
    --n_samples 2)` (DDPM-1000, batch 2, --reso 256) with the launch
    counters set to 0 just before and read just after, output checks and
    the chain/decode seconds;
-5. where a chain step's time goes: host-clock time per DDPM step and,
-   from torch.profiler, the device's busy share and top kernels;
+4b. the same under `SIN3DM_STATS_CHAIN=1`, then under
+   `SIN3DM_FUSED_ACT=1`, with per-form K1 launch counts;
+4c. one full-width forward of the towerruins UNet at batch 2: the stats
+   chain and the fused act (`SIN3DM_FUSED_ACT=1`) each against the
+   default configuration;
+4d. `--inpaint` under the stats chain (DDIM-100): kept cells equal the
+   tag's feat.npz, regenerated cells moved;
+5. where a chain step's time goes, per configuration (default, stats
+   chain, fused act): host-clock time per DDPM step and, from
+   torch.profiler, the device's busy share, operations per step and top
+   kernels;
 6. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -27,6 +38,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -51,6 +63,19 @@ F32_TOL = 1e-4
 # K2 with bf16 operands: fp32 out; a hidden activation that rounds to the
 # other bf16 neighbour moves the output by far less than one bf16 step
 K2_BF16_TOL = 2.0 ** -8
+# K1′ stats, fp32 sums of each side's own rounded y: against the kernel's
+# own y in fp64, summation order only (k-term fp32 sums err by at most
+# k * 2^-24 of the sum of |terms|; the kernel's longest run is 32 rows a
+# thread, the torch sum of <= 184 block partials adds a tree), so 1e-5 of
+# sum |y| (sum y^2) per channel; against the plain version's stats, also
+# the per-element y differences the K1 tolerance allows, summed
+STATS_TOL = 1e-5
+# the UNet's configurations, as the environment selects them
+CONFIGS = {
+    "default": {"SIN3DM_STATS_CHAIN": "0", "SIN3DM_FUSED_ACT": "0"},
+    "stats chain": {"SIN3DM_STATS_CHAIN": "1", "SIN3DM_FUSED_ACT": "0"},
+    "fused act": {"SIN3DM_STATS_CHAIN": "0", "SIN3DM_FUSED_ACT": "1"},
+}
 
 
 def fail(msg: str) -> None:
@@ -95,15 +120,22 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def k1_shapes():
-    """(H, W, C, Co, calls per UNet forward) of every 3x3 conv of the
-    towerruins UNet (planes 92x128 / 92x92 / 128x92 and their halves)."""
+    """(H, W, C, Co, calls per UNet forward in the default configuration,
+    {form: calls per forward under SIN3DM_STATS_CHAIN=1}) of every 3x3
+    conv of the towerruins UNet (planes 92x128 / 92x92 / 128x92 and their
+    halves).  Under SIN3DM_FUSED_ACT=1 every call is of the "act" form.
+    The stats chain chains the down blocks (64->64, 64->128) and the
+    deepest up block (128->128); the 192-channel up block stays default."""
     level0 = [(92, 128), (92, 92), (128, 92)]
     level1 = [(46, 64), (46, 46), (64, 46)]
     out = []
     for H, W in level0:
-        out += [(H, W, 64, 64, 3), (H, W, 192, 64, 1)]
+        out += [(H, W, 64, 64, 3, {"act+stats": 1, "act+skip+stats": 1,
+                                   "default": 1}),
+                (H, W, 192, 64, 1, {"default": 1})]
     for H, W in level1:
-        out += [(H, W, 64, 128, 1), (H, W, 128, 128, 3)]
+        out += [(H, W, 64, 128, 1, {"act+stats": 1}),
+                (H, W, 128, 128, 3, {"act+stats": 1, "act+skip+stats": 2})]
     return out
 
 
@@ -129,7 +161,7 @@ def check_k1(B: int):
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     flops_all = nbytes_all = 0.0
     max_err = 0.0
-    for H, W, C, Co, calls in k1_shapes():
+    for H, W, C, Co, calls, _ in k1_shapes():
         def rnd(*shape, scale=1.0):
             return torch.randn(*shape, generator=g, device="cuda") * scale
         x32 = rnd(B, H, W, C)
@@ -145,11 +177,7 @@ def check_k1(B: int):
             torch.cuda.synchronize()
             err = (got - ref).abs()
             scale = ref.abs().max().item()
-            if dt == torch.bfloat16:
-                tol = 2 * BF16_ULP * (ref.abs() + 0.01 * scale)
-            else:
-                tol = torch.full_like(ref, F32_TOL * max(scale, 1.0))
-            ok = bool((err <= tol).all())
+            ok = bool((err <= k1_tol(ref, dt)).all())
             rel = (err / ref.abs().clamp_min(1e-3 * scale)).max().item()
             print(f"K1 {str(dt)[6:]:8s} {H:3d}x{W:<3d} C={C:3d} Co={Co:3d}: "
                   f"max_abs_err {err.max().item():.3e} max_rel_err "
@@ -183,6 +211,139 @@ def check_k1(B: int):
           f"library {totals['library_ms']:.4f} ms, bound "
           f"{totals['bound_ms']:.5f} ms")
     return {**totals, "max_abs_err": max_err, "bound_by": by}
+
+
+def k1p_library(x, w, b, col3, row3, act, skip, emit_stats):
+    """Yardstick for K1′: the activation as torch elementwise ops, cuDNN
+    conv + the epilogue (`k1_library`), the skip add and torch sums."""
+    import torch
+    B, C = x.shape[0], x.shape[-1]
+    a = x.float() * act[0].reshape(B, 1, 1, C) + act[1].reshape(B, 1, 1, C)
+    y = k1_library((a * torch.sigmoid(a)).to(x.dtype), w, b, col3, row3)
+    if skip is not None:
+        y = y + skip
+    if emit_stats:
+        yf = y.float()
+        return y, torch.stack([yf.sum((1, 2)), (yf * yf).sum((1, 2))], 1)
+    return y
+
+
+def k1_tol(ref, dt):
+    """K1's per-element tolerance against its plain version."""
+    import torch
+    scale = ref.abs().max().item()
+    if dt == torch.bfloat16:
+        return 2 * BF16_ULP * (ref.abs() + 0.01 * scale)
+    return torch.full_like(ref, F32_TOL * max(scale, 1.0))
+
+
+def stats_errors(got_y, got_s, ref_y, ref_s, tol):
+    """(error against fp64 sums of the kernel's own y, error against the
+    plain version's stats), each as a multiple of its allowance (<= 1
+    passes); see STATS_TOL."""
+    import torch
+    yk = got_y.double()
+    own = torch.stack([yk.sum((1, 2)), (yk * yk).sum((1, 2))], 1)
+    mass = torch.stack([yk.abs().sum((1, 2)), (yk * yk).sum((1, 2))], 1)
+    allow_own = STATS_TOL * mass + 1e-30
+    t = tol.double()
+    ya = ref_y.double().abs()
+    slack = torch.stack([t.sum((1, 2)), (2 * ya * t + t * t).sum((1, 2))], 1)
+    e_own = ((got_s.double() - own).abs() / allow_own).max().item()
+    e_ref = ((got_s.double() - ref_s.double()).abs()
+             / (slack + allow_own)).max().item()
+    return e_own, e_ref
+
+
+def check_k1p(B: int):
+    """K1′ against its plain version at every main-path shape where a form
+    runs: act at all 12 (the fused act), act+stats and act+skip+stats
+    where the stats chain puts them.  Times in bf16.  Returns per form
+    {ms, plain_ms, library_ms (per forward of its configuration), flops,
+    nbytes, max_abs_err}."""
+    import torch
+    from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout,
+                                                 conv3x3_rollout_reference)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    forms = {f: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "flops": 0.0, "nbytes": 0.0, "max_abs_err": 0.0,
+                 "calls": 0}
+             for f in ("act", "act+stats", "act+skip+stats")}
+    for H, W, C, Co, calls, chained in k1_shapes():
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        x32 = rnd(B, H, W, C)
+        w32 = rnd(3, 3, C, Co, scale=(9 * C) ** -0.5)
+        b = rnd(Co, scale=0.1)
+        col32 = rnd(B, W, 3, Co, scale=0.3)
+        row32 = rnd(B, H, 3, Co, scale=0.3)
+        act = (1.0 + rnd(B, C, scale=0.3), rnd(B, C, scale=0.5))
+        skip32 = rnd(B, H, W, Co)
+        for form in forms:
+            n = calls if form == "act" else chained.get(form, 0)
+            if not n:
+                continue
+            has_skip, stats = "skip" in form, "stats" in form
+            for dt in (torch.bfloat16, torch.float32):
+                x, w = x32.to(dt), w32.to(dt)
+                col3, row3 = col32.to(dt), row32.to(dt)
+                skip = skip32.to(dt) if has_skip else None
+                got = conv3x3_rollout(x, w, b, col3, row3, act, skip, stats)
+                ref = conv3x3_rollout_reference(x, w, b, col3, row3, act,
+                                                skip, stats)
+                torch.cuda.synchronize()
+                (gy, gs), (ry, rs) = (got, ref) if stats else \
+                    ((got, None), (ref, None))
+                gy, ry = gy.float(), ry.float()
+                err = (gy - ry).abs()
+                tol = k1_tol(ry, dt)
+                ok = bool((err <= tol).all())
+                line = (f"K1' {form:14s} {str(dt)[6:]:8s} {H:3d}x{W:<3d} "
+                        f"C={C:3d} Co={Co:3d}: max_abs_err "
+                        f"{err.max().item():.3e}")
+                if stats:
+                    e_own, e_ref = stats_errors(gy, gs, ry, rs, tol)
+                    ok = ok and e_own <= 1.0 and e_ref <= 1.0
+                    line += (f", stats err {e_own:.3f} of its own-sum "
+                             f"allowance, {e_ref:.3f} of the plain-version "
+                             "allowance")
+                print(f"{line} ({'ok' if ok else 'FAIL'})")
+                if not ok:
+                    fail(f"K1' {form} {dt} {H}x{W} C={C} Co={Co} disagrees "
+                         "with its plain version")
+                forms[form]["max_abs_err"] = max(forms[form]["max_abs_err"],
+                                                 err.max().item())
+            x, w = x32.bfloat16(), w32.bfloat16()
+            col3, row3 = col32.bfloat16(), row32.bfloat16()
+            skip = skip32.bfloat16() if has_skip else None
+            args = (x, w, b, col3, row3, act, skip, stats)
+            ms = time_ms(lambda: conv3x3_rollout(*args))
+            plain = time_ms(lambda: conv3x3_rollout_reference(*args))
+            lib = time_ms(lambda: k1p_library(*args))
+            flops = 2.0 * B * H * W * 9 * C * Co
+            nbytes = (2.0 * (B * H * W * C + 9 * C * Co + B * W * 3 * Co
+                             + B * H * 3 * Co + B * H * W * Co) + 4.0 * Co
+                      + 4.0 * 2 * B * C
+                      + (2.0 * B * H * W * Co if has_skip else 0.0)
+                      + (4.0 * B * 2 * Co if stats else 0.0))
+            bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            print(f"K1' {form:14s} bf16 {H:3d}x{W:<3d} C={C:3d} Co={Co:3d} "
+                  f"x{n}/fwd: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain * 1e3:.2f} us, library {lib * 1e3:.2f} us, "
+                  f"bound {bms * 1e3:.3f} us ({by})")
+            f = forms[form]
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("flops", flops), ("nbytes", nbytes)):
+                f[k] += n * v
+            f["calls"] += n
+    for form, f in forms.items():
+        f["bound_ms"], f["bound_by"] = bound(f["flops"], f["nbytes"],
+                                             PEAK_BF16_FLOPS)
+        print(f"K1' {form} per UNet forward (batch {B}, {f['calls']} "
+              f"launches): kernel {f['ms']:.4f} ms, plain "
+              f"{f['plain_ms']:.4f} ms, library {f['library_ms']:.4f} ms, "
+              f"bound {f['bound_ms']:.5f} ms ({f['bound_by']})")
+    return forms
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +424,7 @@ def check_k2(ae_params, n_rows: int):
 # Where a chain step's time goes
 # ---------------------------------------------------------------------------
 
-def profile_chain(argv, n_steps: int = 10) -> None:
+def profile_chain(argv, n_steps: int = 10) -> dict:
     """The main path's reverse chain cut to its last `n_steps` DDPM steps
     (same model, batch 2): host-clock time per step, then under
     torch.profiler the device's busy time, its operations per step and
@@ -299,7 +460,7 @@ def profile_chain(argv, n_steps: int = 10) -> None:
     if not ops:
         print("chain step: device busy share not measured (the profiler "
               "recorded no device activity)")
-        return
+        return {"step_ms": step_ms}
     spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:          # union of the device's busy intervals
@@ -319,6 +480,147 @@ def profile_chain(argv, n_steps: int = 10) -> None:
     for name, (n, us) in top:
         print(f"  {us / 1e3 / n_steps:8.4f} ms/step {n / n_steps:6.1f} "
               f"launches/step  {name[:90]}")
+    return {"step_ms": step_ms, "busy_ms": busy_ms,
+            "ops_per_step": len(ops) / n_steps}
+
+
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def configuration(name: str):
+    """The UNet configuration `name` of CONFIGS for a `with` block; the
+    environment is restored after it."""
+    old = {k: os.environ.get(k) for k in CONFIGS[name]}
+    os.environ.update(CONFIGS[name])
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def reset_counts() -> None:
+    from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
+    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
+    conv3x3_rollout.launches = 0
+    conv3x3_rollout.form_launches = {}
+    skip_mlp.launches = 0
+
+
+def read_counts() -> dict:
+    from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
+    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
+    return {"k1": conv3x3_rollout.launches,
+            "k1_forms": dict(conv3x3_rollout.form_launches),
+            "k2": skip_mlp.launches}
+
+
+def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
+              occupancy: bool = True):
+    """`cli.main(argv + --output <tmp>)` with the launch counts set to 0
+    just before and read just after; checks the per-form K1 and the K2
+    counts, the feat.npz and voxel grids (and each grid's occupancy).
+    Returns (main's result, counts, per-sample feat planes)."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_")
+    try:
+        reset_counts()
+        res = cli.main(argv + ["--output", out_dir])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{label}: K1 launches by form {counts['k1_forms']} (want "
+              f"{want_forms}), K2 launches {counts['k2']} (want {want_k2})")
+        if counts["k1_forms"] != want_forms or counts["k2"] != want_k2:
+            fail(f"{label}: the path did not launch the kernels as "
+                 "expected")
+        feats = []
+        n = len(res["paths"])
+        reso = cli.cfgmod.sample_args(argv).reso
+        for j in range(n):
+            d = os.path.join(out_dir, f"{j:03d}")
+            with np.load(os.path.join(d, "feat.npz")) as f:
+                planes = [f[k] for k in ("feat_xy", "feat_xz", "feat_yz")]
+            if not all(np.isfinite(p).all() for p in planes):
+                fail(f"{label} sample {j}: non-finite feat.npz")
+            feats.append(planes)
+            with np.load(os.path.join(d, f"r{reso}_voxel.npz")) as v:
+                grid = v["vox_grid"]
+            occ = float(grid.mean())
+            print(f"{label} sample {j}: feat {[p.shape for p in planes]}, "
+                  f"voxel grid {tuple(grid.shape)}, occupancy {occ:.4f}")
+            if occupancy and not 0.15 <= occ <= 0.19:
+                fail(f"{label} sample {j}: occupancy {occ:.4f} outside "
+                     "[0.15, 0.19] (committed JAX samples: 0.1667-0.1693)")
+        print(f"{label}: chain {res['sample_seconds'] / n:.3f} s per sample "
+              f"({res['sample_seconds']:.3f} s in all, batch {n}), decode "
+              f"{res['decode_seconds']:.3f} s for {n} grids")
+        return res, counts, feats
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def forward_parity(B: int = 2):
+    """One full-width forward of the towerruins EMA UNet on one seeded
+    input, per configuration; the stats chain and the fused act against
+    the default with the bound of the JAX package's own stats-chain test
+    (tests/test_fused_conv.py): |o - r| <= 0.05 + 0.05 |r|, mean < 5e-3."""
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core.triplane import Triplane, load_triplane_npz
+    args = cli.cfgmod.sample_args(["--tag", TAG])
+    dev = torch.device("cuda")
+    model, _, _ = cli.build_model(args, dev)
+    H, W, D = load_triplane_npz(cli.cfgmod.encoding_feat_path(TAG)).sizes
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = Triplane(*[torch.randn(B, a, b, 12, generator=g, device="cuda")
+                   for a, b in ((H, W), (H, D), (W, D))])
+    t = torch.tensor([500, 20], device="cuda")[:B]
+    outs = {}
+    for name in CONFIGS:
+        with configuration(name):
+            outs[name] = model(x, t)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name in ("stats chain", "fused act"):
+        for plane, o, r in zip(("xy", "xz", "yz"), outs[name],
+                               outs["default"]):
+            d = (o - r).abs()
+            ratio = (d / (0.05 + 0.05 * r.abs())).max().item()
+            mean = d.mean().item()
+            ok = ratio <= 1.0 and mean < 5e-3 and bool(o.isfinite().all())
+            print(f"forward parity {name} vs default, {plane}: max_abs "
+                  f"{d.max().item():.3e}, mean_abs {mean:.3e}, "
+                  f"{ratio:.3f} of the bound ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                fail(f"forward parity: {name} {plane} outside the bound")
+            worst = max(worst, d.max().item())
+    return worst
+
+
+def check_inpaint(feats, H: int) -> None:
+    """As tests/test_e2e.py checks the JAX CLI: rows >= H/2 of xy and xz
+    equal the tag's feat.npz to 1e-5, yz everywhere, and the regenerated
+    half moved by more than 1e-3."""
+    import numpy as np
+    with np.load(os.path.join(TAG, "encoding", "feat.npz")) as f:
+        y0 = [f[k] for k in ("feat_xy", "feat_xz", "feat_yz")]
+    h2 = H // 2
+    for j, (xy, xz, yz) in enumerate(feats):
+        kept = max(np.abs(xy[:, h2:] - y0[0][:, h2:]).max(),
+                   np.abs(xz[:, h2:] - y0[1][:, h2:]).max(),
+                   np.abs(yz - y0[2]).max())
+        moved = np.abs(xy[:, :h2] - y0[0][:, :h2]).max()
+        ok = kept <= 1e-5 and moved > 1e-3
+        print(f"inpaint sample {j}: kept cells max |feat - y0| {kept:.3e} "
+              f"(<= 1e-5), regenerated half max |feat - y0| {moved:.3e} "
+              f"(> 1e-3) ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            fail(f"inpaint sample {j}: kept {kept:.3e}, moved {moved:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -332,11 +634,8 @@ def main() -> int:
     from sin3dm_tpu_torch.cli import sample as cli
     from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
     from sin3dm_tpu_torch.core import checkpoint as ckpt
-    from sin3dm_tpu_torch.models.unet import k1_launches_per_forward
+    from sin3dm_tpu_torch.models.unet import k1_launches_by_form
     from sin3dm_tpu_torch.ops import _build
-    from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
-    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
-    import numpy as np
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -360,6 +659,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     B = 2
     k1 = check_k1(B)
+    k1p = check_k1p(B)
     tree, meta = ckpt.load_tree(os.path.join(
         TAG, "encoding", "ckpt_final.pth"), "params")
     ae_params = ae_params_from_jax(tree, "cuda")
@@ -367,73 +667,92 @@ def main() -> int:
     slab_rows = 8 * gy * gz
     k2 = check_k2(ae_params, slab_rows)
 
-    # 4. main path
-    out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_")
-    try:
-        argv = ["--tag", TAG, "--vox", "--n_samples", "2",
-                "--output", out_dir]
-        conv3x3_rollout.launches = 0
-        skip_mlp.launches = 0
-        res = cli.main(argv)
-        torch.cuda.synchronize()
-        k1_n, k2_n = conv3x3_rollout.launches, skip_mlp.launches
-        args = cli.cfgmod.sample_args(argv)
-        ucfg = cli.cfgmod.unet_config_from_args(args)
-        n_steps = int(args.steps)
-        want_k1 = k1_launches_per_forward(ucfg) * n_steps  # one batch of 2
-        n_slabs = -(-gx // 8)
-        want_k2 = 2 * n_slabs * 2
-        print(f"main path: K1 launches {k1_n} (want {want_k1}; the JAX "
-              "kernel makes 3 more per forward, as it splits the "
-              f"192-channel conv), K2 launches {k2_n} (want {want_k2})")
-        if k1_n != want_k1 or k2_n != want_k2:
-            fail("the main path did not launch the kernels as expected")
-        for j in range(2):
-            d = os.path.join(out_dir, f"{j:03d}")
-            with np.load(os.path.join(d, "feat.npz")) as f:
-                planes = [f[k] for k in ("feat_xy", "feat_xz", "feat_yz")]
-            if not all(np.isfinite(p).all() for p in planes):
-                fail(f"sample {j}: non-finite feat.npz")
-            shapes = [p.shape for p in planes]
-            with np.load(os.path.join(d, "r256_voxel.npz")) as v:
-                grid = v["vox_grid"]
-            occ = float(grid.mean())
-            print(f"sample {j}: feat {shapes}, voxel grid "
-                  f"{tuple(grid.shape)}, occupancy {occ:.4f}")
-            if tuple(grid.shape) != (gx, gy, gz):
-                fail(f"sample {j}: voxel grid shape {grid.shape}")
-            if not 0.15 <= occ <= 0.19:
-                fail(f"sample {j}: occupancy {occ:.4f} outside [0.15, 0.19]"
-                     " (committed JAX samples: 0.1667-0.1693)")
-        chain_s = res["sample_seconds"] / 2
-        print(f"main path: chain {chain_s:.3f} s per sample (DDPM-{n_steps},"
-              f" batch 2, {res['sample_seconds']:.3f} s in all), decode "
-              f"{res['decode_seconds']:.3f} s for 2 grids")
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    # 4. main path, default configuration
+    vox = ["--tag", TAG, "--vox", "--n_samples", "2"]
+    args = cli.cfgmod.sample_args(vox)
+    ucfg = cli._unet_config(args)
+    n_steps = int(args.steps)
+    want_k2 = 2 * -(-gx // 8) * 2     # 2 heads x slabs of 8 x-rows, 2 grids
 
-    # 5. where a chain step's time goes
-    profile_chain(["--tag", TAG])
+    def want(steps):
+        return {f: n * steps for f, n in k1_launches_by_form(ucfg).items()}
+
+    print("main path: the JAX kernel makes 3 more K1 launches per forward, "
+          "as it splits the 192-channel conv")
+    with configuration("default"):
+        _, main_counts, _ = drive_vox("main path", vox, want(n_steps),
+                                      want_k2)
+
+    # 4b. the opt-in configurations
+    opt_in = {}
+    for name in ("stats chain", "fused act"):
+        with configuration(name):
+            _, opt_in[name], _ = drive_vox(name, vox, want(n_steps), want_k2)
+
+    # 4c. forward parity of the opt-in configurations with the default
+    parity_err = forward_parity(B)
+
+    # 4d. --inpaint under the stats chain
+    inpaint = vox + ["--use_ddim", "true", "--timestep_respacing", "ddim100",
+                     "--inpaint", "true", "--inpaint_region", "0", "0.5",
+                     "0", "1", "0", "1", "--is_mask_t0", "true"]
+    with configuration("stats chain"):
+        _, inpaint_counts, feats = drive_vox("inpaint", inpaint, want(100),
+                                             want_k2, occupancy=False)
+    check_inpaint(feats, feats[0][0].shape[1])
+
+    # 5. where a chain step's time goes, per configuration
+    prof = {}
+    for name in CONFIGS:
+        print(f"profile, {name} configuration:")
+        with configuration(name):
+            prof[name] = profile_chain(["--tag", TAG])
+    for name, p in prof.items():
+        busy = (f"device busy {p['busy_ms']:.3f} ms "
+                f"({p['busy_ms'] / p['step_ms']:.1%}), "
+                f"{p['ops_per_step']:.0f} operations per step"
+                if "busy_ms" in p else "device busy not measured")
+        print(f"chain step, {name}: {p['step_ms']:.3f} ms per step (host "
+              f"clock), {busy}")
 
     # 6. results
+    def row(name, source, replaces, launches, r, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **extra}
+
+    chained = ("act+stats", "act+skip+stats")
+    k1p_all = {k: sum(k1p[f][k] for f in chained)
+               for k in ("ms", "plain_ms", "library_ms", "flops", "nbytes")}
+    k1p_all["max_abs_err"] = max(k1p[f]["max_abs_err"] for f in k1p)
+    k1p_all["bound_ms"], k1p_all["bound_by"] = bound(
+        k1p_all["flops"], k1p_all["nbytes"], PEAK_BF16_FLOPS)
+    k1p_launches = {f: opt_in["stats chain"]["k1_forms"].get(f, 0)
+                    for f in chained}
+    k1p_launches["act"] = opt_in["fused act"]["k1_forms"].get("act", 0)
+    src = "sin3dm_tpu_torch/csrc/fused_conv.cu"
     kernels = [
-        {"name": "conv3x3_rollout", "route": "cuda",
-         "source": "sin3dm_tpu_torch/csrc/fused_conv.cu",
-         "replaces": "sin3dm_tpu/ops/fused_conv.py:177",
-         "launches": k1_n, "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
-        {"name": "skip_mlp", "route": "cuda",
-         "source": "sin3dm_tpu_torch/csrc/fused_mlp.cu",
-         "replaces": "sin3dm_tpu/ops/fused_mlp.py:79",
-         "launches": k2_n, "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"]},
+        row("conv3x3_rollout", src, "sin3dm_tpu/ops/fused_conv.py:177",
+            main_counts["k1"], k1),
+        row("conv3x3_rollout act/skip/emit_stats (K1')", src,
+            "sin3dm_tpu/ops/fused_conv.py:177",
+            sum(k1p_launches[f] for f in chained), k1p_all,
+            forms={f: {"launches": k1p_launches[f],
+                       **{k: k1p[f][k] for k in
+                          ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by", "max_abs_err")}} for f in k1p},
+            forward_parity_max_abs=parity_err,
+            inpaint_launches=inpaint_counts["k1_forms"]),
+        row("skip_mlp", "sin3dm_tpu_torch/csrc/fused_mlp.cu",
+            "sin3dm_tpu/ops/fused_mlp.py:79", main_counts["k2"], k2),
     ]
-    print("kernel times: K1 per UNet forward at batch 2 (24 launches), K2 "
-          "per x-slab of both heads")
+    print("kernel times: K1 per UNet forward at batch 2 (24 launches), K1' "
+          "per stats-chained forward (9 act+stats + 9 act+skip+stats; its "
+          "'act' form per fused-act forward, 24 launches), K2 per x-slab of "
+          "both heads; launches from each configuration's --vox run")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

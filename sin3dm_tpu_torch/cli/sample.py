@@ -2,7 +2,8 @@
 
     python -m sin3dm_tpu_torch.cli.sample --tag T --vox [--n_samples N]
         [--use_ddim true --timestep_respacing ddim100] [--resize 1 1 1.5]
-        [--device cuda|cpu]
+        [--inpaint true --inpaint_region x0 x1 y0 y1 z0 z1
+         [--inpaint_feat F] [--is_mask_t0 true]] [--device cuda|cpu]
 
 Draws triplane samples from the trained diffusion model, writes one
 `feat.npz` per sample under `<tag>/<output>/<j:03d>/`, and with `--vox`
@@ -12,8 +13,12 @@ decodes each to `r{reso}_voxel.npz`.  Runs on the card unless
 Numerics follow the JAX package's accelerator defaults: a bf16 UNet
 torso with fp32 GroupNorm statistics (`SIN3DM_SAMPLE_DTYPE=train` keeps
 the args.json dtype) and bf16 operands in the decode heads
-(`SIN3DM_DECODE_BF16=0` keeps fp32).  The mesh path (no `--vox`),
-data-parallel and spatial sampling and inpainting are later slices.
+(`SIN3DM_DECODE_BF16=0` keeps fp32).  `SIN3DM_STATS_CHAIN=1` and
+`SIN3DM_FUSED_ACT=1` select the UNet's opt-in configurations
+(`models/unet.py`).  `--inpaint` (DDIM only) keeps the tag's own
+`feat.npz` (or `--inpaint_feat`) outside the box `--inpaint_region` and
+regenerates inside it.  The mesh path (no `--vox`), data-parallel and
+spatial sampling are later slices.
 """
 
 from __future__ import annotations
@@ -48,8 +53,6 @@ def _check_slice(args) -> None:
     if int(getattr(args, "sample_spatial", 1)) != 1:
         raise NotImplementedError(
             f"--sample_spatial: plane-spatial sharding is {where}")
-    if getattr(args, "inpaint", False):
-        raise NotImplementedError(f"--inpaint: masked generation is {where}")
 
 
 def _unet_config(args):
@@ -82,6 +85,22 @@ def build_model(args, device: torch.device):
     return (lambda x, t: unet_apply(params, ucfg, x, t)), tables, dcfg
 
 
+def _inpaint_inputs(args, sizes, device):
+    """(y0, mask) for --inpaint: y0 the known triplane with a batch dim
+    of 1, mask 1 where it is kept (`region_keep_masks`)."""
+    from ..diffusion.sampling import region_keep_masks
+    if not args.use_ddim:
+        raise ValueError("--inpaint requires --use_ddim")
+    src = args.inpaint_feat or cfgmod.encoding_feat_path(args.tag)
+    y0 = load_triplane_npz(src, device)
+    if y0.sizes != sizes:
+        raise ValueError(f"--inpaint y0 sizes {y0.sizes} != target {sizes}"
+                         " (inpainting does not combine with --resize)")
+    print(f"inpainting region {tuple(args.inpaint_region)} from {src}")
+    return (y0.map(lambda p: p[None]),
+            region_keep_masks(sizes, tuple(args.inpaint_region), device))
+
+
 def _build_sampler(args):
     """(sampler, channels, sizes, device): the reverse chain over the EMA
     checkpoint, plane sizes from the tag's feat.npz times --resize."""
@@ -97,9 +116,14 @@ def _build_sampler(args):
     D = int(D * args.resize[2])
     print("H, W, D:", H, W, D)
 
+    y0 = mask = None
+    if getattr(args, "inpaint", False):
+        y0, mask = _inpaint_inputs(args, (H, W, D), device)
     model, tables, dcfg = build_model(args, device)
     sampler = make_sampler(model, tables, dcfg, use_ddim=args.use_ddim,
-                           device=device)
+                           device=device, y0=y0, mask=mask,
+                           is_mask_t0=bool(getattr(args, "is_mask_t0",
+                                                   False)))
     return sampler, C, (H, W, D), device
 
 

@@ -98,22 +98,61 @@ def group_norm32_film_silu(p: Dict, x: torch.Tensor, film=None,
 
     x: `[B, H, W, C]`; film: optional (scale, shift) each `[B, 1, 1, C]`.
     """
-    dt = x.dtype
-    *lead, H, W, C = x.shape
-    mean, rstd = _group_stats(x, num_groups, eps)
-    rep = C // num_groups
-    mean_c = mean.repeat_interleave(rep, dim=-1)
-    rstd_c = rstd.repeat_interleave(rep, dim=-1)
-    A = rstd_c * p["g"]
-    B = p["b"] - mean_c * A
-    A = A.reshape(*lead, 1, 1, C)
-    B = B.reshape(*lead, 1, 1, C)
+    return apply_film_coeffs(x, *group_norm32_film_coeffs(
+        p, x, film, num_groups, eps))
+
+
+def _fold_coeffs(p: Dict, mean: torch.Tensor, rstd: torch.Tensor, C: int,
+                 film):
+    """Per-group (mean, rstd) `[B, g]` and gamma/beta [+ FiLM] folded into
+    per-channel (A, B) each `[B, C]` fp32."""
+    rep = C // mean.shape[-1]
+    A = rstd.repeat_interleave(rep, dim=-1) * p["g"]
+    B = p["b"] - mean.repeat_interleave(rep, dim=-1) * A
     if film is not None:
-        scale, shift = film
-        one_p = 1.0 + scale.float()
+        scale, shift = film                          # [B, 1, 1, C]
+        one_p = 1.0 + scale.float().reshape(A.shape)
         A = A * one_p
-        B = B * one_p + shift.float()
-    return silu(x * A.to(dt) + B.to(dt))
+        B = B * one_p + shift.float().reshape(A.shape)
+    return A, B
+
+
+def group_norm32_film_coeffs(p: Dict, x: torch.Tensor, film=None,
+                             num_groups: int = 32, eps: float = 1e-5):
+    """(A, B) each `[B, C]` fp32 with `silu(x*A + B)` ==
+    `group_norm32_film_silu(p, x, film)`: the coefficients that the 3x3
+    kernel's `act=` applies to its input (`ops/fused_conv.py`)."""
+    mean, rstd = _group_stats(x, num_groups, eps)
+    return _fold_coeffs(p, mean, rstd, x.shape[-1], film)
+
+
+def group_norm32_coeffs_from_sums(p: Dict, stats: torch.Tensor, n_hw: int,
+                                  film=None, num_groups: int = 32,
+                                  eps: float = 1e-5):
+    """`group_norm32_film_coeffs` from per-channel (sum, sum of squares)
+    `stats` `[B, 2, C]` fp32 over `n_hw` positions, as the 3x3 kernel's
+    `emit_stats` returns them: var = E[x^2] - mean^2, clamped at 0."""
+    B_, _, C = stats.shape
+    g = num_groups
+    if C % g != 0:
+        raise ValueError(f"GroupNorm32 needs channels divisible by {g}, "
+                         f"got {C}")
+    n = float(n_hw * (C // g))
+    s1 = stats[:, 0].reshape(B_, g, C // g).sum(-1)
+    s2 = stats[:, 1].reshape(B_, g, C // g).sum(-1)
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    rstd = torch.rsqrt(var.clamp_min(0.0) + eps)
+    return _fold_coeffs(p, mean, rstd, C, film)
+
+
+def apply_film_coeffs(x: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor) -> torch.Tensor:
+    """`silu(x*A + B)` with A, B `[B, C]` cast to x.dtype and the apply in
+    x.dtype (the form outside the kernel, as in the JAX package)."""
+    shape = x.shape[:-3] + (1, 1, x.shape[-1])
+    return silu(x * A.reshape(shape).to(x.dtype)
+                + B.reshape(shape).to(x.dtype))
 
 
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:

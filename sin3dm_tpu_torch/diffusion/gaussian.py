@@ -155,11 +155,27 @@ def p_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
 def ddim_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
                      x: Triplane, t: torch.Tensor,
                      noise: Optional[Triplane], eta: float = 0.0,
-                     clip_denoised: bool = True) -> Triplane:
+                     clip_denoised: bool = True,
+                     y0: Optional[Triplane] = None,
+                     mask: Optional[Triplane] = None,
+                     is_mask_t0: bool = False) -> Triplane:
     """One DDIM step.  `noise` may be None only for eta == 0, where the
-    noise term is exactly zero."""
+    noise term is exactly zero.
+
+    With `y0` and `mask` (masked generation): pred_xstart becomes
+    `mask * y0 + (1 - mask) * pred_xstart` before eps is re-derived, so
+    mask = 1 keeps y0 -- at every step with `is_mask_t0`, else at every
+    step but the last (t = 0)."""
     out = p_mean_variance(model, tables, cfg, x, t, clip_denoised)
     pred_xstart = out.pred_xstart
+    if y0 is not None and mask is not None:
+        blended = mask * y0 + mask.map(lambda m: 1.0 - m) * pred_xstart
+        if is_mask_t0:
+            pred_xstart = blended
+        else:
+            nzt = _nonzero_t(t, x)
+            pred_xstart = (blended * nzt
+                           + pred_xstart * nzt.map(lambda m: 1.0 - m))
     eps = predict_eps_from_xstart(tables, x, t, pred_xstart)
     ab = extract(tables, "alphas_cumprod", t, x)
     ab_prev = extract(tables, "alphas_cumprod_prev", t, x)

@@ -85,10 +85,13 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                      gens: Optional[Sequence[torch.Generator]], batch: int,
                      channels: int, sizes: Tuple[int, int, int],
                      noise: Optional[Triplane] = None, eta: float = 0.0,
-                     clip_denoised: bool = True,
-                     device="cuda") -> Triplane:
-    """DDIM sampling over the (respaced) schedule.  With eta == 0 the
-    chain depends only on the initial noise and draws nothing more."""
+                     clip_denoised: bool = True, device="cuda",
+                     y0: Optional[Triplane] = None,
+                     mask: Optional[Triplane] = None,
+                     is_mask_t0: bool = False) -> Triplane:
+    """DDIM sampling over the (respaced) schedule, optionally masked (see
+    `ddim_sample_step`).  With eta == 0 the chain depends only on the
+    initial noise and draws nothing more."""
     T = tables["betas"].shape[0]
     x = _init(gens, batch, channels, sizes, noise, device,
               step_noise=eta != 0.0)
@@ -97,18 +100,59 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
         step_noise = (randn_per_sample(gens, channels, sizes, device)
                       if eta != 0.0 else None)
         x = ddim_sample_step(model, tables, cfg, x, tb, step_noise,
-                             eta=eta, clip_denoised=clip_denoised)
+                             eta=eta, clip_denoised=clip_denoised, y0=y0,
+                             mask=mask, is_mask_t0=is_mask_t0)
     return x
+
+
+def region_keep_masks(sizes: Tuple[int, int, int],
+                      region: Tuple[float, float, float, float, float, float],
+                      device="cpu") -> Triplane:
+    """Per-plane keep-masks (1 = keep y0, 0 = regenerate) from a
+    fractional 3D box `(x0, x1, y0, y1, z0, z1)` in [0, 1] of (H, W, D).
+
+    A plane cell contributes to every point along the plane's missing
+    axis, so it is regenerated only where its footprint lies inside the
+    box AND the box spans that missing axis completely: with
+    `is_mask_t0` the decode outside the box is kept exactly.  Index i of
+    an axis of n cells is inside where round(a*n) <= i < round(b*n)
+    (Python's round, half to even).  Shapes `[H, W, 1]`, `[H, D, 1]`,
+    `[W, D, 1]` fp32, broadcasting over `[B, ., ., C]`."""
+    H, W, D = sizes
+    x0, x1, y0, y1, z0, z1 = region
+
+    def seg(n, a, b):
+        i = np.arange(n)
+        return ((i >= int(round(a * n)))
+                & (i < int(round(b * n)))).astype(np.float32)
+
+    mx, my, mz = seg(H, x0, x1), seg(W, y0, y1), seg(D, z0, z1)
+    fx, fy, fz = (float(m.all()) for m in (mx, my, mz))
+    planes = (1.0 - mx[:, None] * my[None, :] * fz,
+              1.0 - mx[:, None] * mz[None, :] * fy,
+              1.0 - my[:, None] * mz[None, :] * fx)
+    return Triplane(*[torch.as_tensor(m, dtype=torch.float32,
+                                      device=device)[..., None]
+                      for m in planes])
 
 
 def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
                  use_ddim: bool = False, eta: float = 0.0,
-                 clip_denoised: bool = True, device="cuda"):
+                 clip_denoised: bool = True, device="cuda",
+                 y0: Optional[Triplane] = None,
+                 mask: Optional[Triplane] = None,
+                 is_mask_t0: bool = False):
     """Return `sample(seed, start, batch, channels, sizes, noise=None)`
     -> Triplane: the reverse chain for global samples start..start+batch-1
-    (the port's `make_jit_sampler`)."""
-    loop = ddim_sample_loop if use_ddim else p_sample_loop
-    kw = {"eta": eta} if use_ddim else {}
+    (the port's `make_jit_sampler`).  `y0`/`mask` (DDIM only): masked
+    generation, mask = 1 keeps y0."""
+    if (y0 is not None or mask is not None) and not use_ddim:
+        raise ValueError("masked generation (y0/mask) requires use_ddim")
+    if use_ddim:
+        loop = ddim_sample_loop
+        kw = {"eta": eta, "y0": y0, "mask": mask, "is_mask_t0": is_mask_t0}
+    else:
+        loop, kw = p_sample_loop, {}
 
     @torch.no_grad()
     def sample(seed: int, start: int, batch: int, channels: int,

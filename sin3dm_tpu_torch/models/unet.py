@@ -14,17 +14,39 @@ goes through K1, in bf16 and in fp32 alike.
 Sampling numerics follow the JAX package's accelerator defaults: a bf16
 torso with `fast_norm` (fp32 GroupNorm statistics, apply in bf16); the
 chain state stays fp32.  Training arrives in a later slice.
+
+Two opt-in configurations of the resblocks, read from the environment at
+every forward as the JAX package reads them (default "0"; fused-act wins
+where both are set).  The port's conditions are JAX's with
+`fused_conv=True`, since every 3x3 conv here is K1:
+
+- `SIN3DM_FUSED_ACT=1`: each norm + FiLM + SiLU folds into per-channel
+  coefficients that K1′ applies to its input (`act=`).  The rollout axis
+  means still take the activation applied in the compute dtype, which
+  this eager port writes out (XLA fuses it into the reductions).  JAX
+  turns its kernel off for a 4-byte compute dtype and applies the
+  coefficients outside; the port keeps K1′ there, so in fp32 the two
+  differ by summation order only.
+- `SIN3DM_STATS_CHAIN=1` (2-byte compute dtype only): a block's convs also
+  emit their outputs' (sum, sum of squares) (`emit_stats`), the next
+  GroupNorm's coefficients come from those, and the residual add rides
+  in the out conv's epilogue (`skip=`).  The statistics reset wherever
+  the tensor changes outside a chained conv (down/up-sampling, the skip
+  concat).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import os
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core import nn
 from ..core.triplane import Triplane
-from ..ops.fused_conv import conv3x3_rollout
+from ..ops.fused_conv import conv3x3_rollout, form_name
+
+PLANES = ("xy", "xz", "yz")
 
 
 class UNetConfig(NamedTuple):
@@ -93,43 +115,73 @@ def _rowvar_vecs(vec: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
                                 kb[:, :2].sum(1)))
 
 
-def _tconv_apply_rollout_fast(p: Dict, t: Triplane) -> Triplane:
-    """Rollout 3x3 conv without the 3x-channel concat, through K1."""
-    C = t.channels
-    m_yz_d = t.yz.mean(dim=-2)   # [B, W, C]
-    m_xz_d = t.xz.mean(dim=-2)   # [B, H, C]
-    m_xy_w = t.xy.mean(dim=-2)   # [B, H, C]
-    m_yz_w = t.yz.mean(dim=-3)   # [B, D, C]
-    m_xy_h = t.xy.mean(dim=-3)   # [B, W, C]
-    m_xz_h = t.xz.mean(dim=-3)   # [B, D, C]
+def _act_triplane(t: Triplane, act: Dict) -> Triplane:
+    """Per-plane `silu(x*A + B)` applied in x's dtype (the form of K1′'s
+    `act=` outside the kernel)."""
+    return Triplane(*[nn.apply_film_coeffs(x, *act[k])
+                      for k, x in zip(PLANES, t)])
 
-    def one(pp, x, col_vec, row_vec, col_first: bool):
-        w = pp["w"]
+
+def _tconv_apply_rollout_fast(p: Dict, t: Triplane, act: Dict = None,
+                              skip: Triplane = None,
+                              emit_stats: bool = False):
+    """Rollout 3x3 conv without the 3x-channel concat, through K1.
+
+    With `act` (per-plane folded GN32[+FiLM]+SiLU coefficients) `t` is
+    the raw pre-norm triplane: K1′ activates its input, while the axis
+    means here are taken of the activation applied in t's dtype, as in
+    the JAX package.  `skip` is added in the kernel's epilogue; with
+    `emit_stats` the result is (Triplane, {plane: [B, 2, Co] stats})."""
+    C = t.channels
+    ta = _act_triplane(t, act) if act is not None else t
+    m_yz_d = ta.yz.mean(dim=-2)   # [B, W, C]
+    m_xz_d = ta.xz.mean(dim=-2)   # [B, H, C]
+    m_xy_w = ta.xy.mean(dim=-2)   # [B, H, C]
+    m_yz_w = ta.yz.mean(dim=-3)   # [B, D, C]
+    m_xy_h = ta.xy.mean(dim=-3)   # [B, W, C]
+    m_xz_h = ta.xz.mean(dim=-3)   # [B, D, C]
+
+    def one(k, x, col_vec, row_vec, col_first: bool):
+        w = p[k]["w"]
         col_slot, row_slot = (1, 2) if col_first else (2, 1)
         col3 = _colvar_vecs(col_vec, w[:, :, col_slot * C:(col_slot + 1) * C])
         row3 = _rowvar_vecs(row_vec, w[:, :, row_slot * C:(row_slot + 1) * C])
-        return conv3x3_rollout(x, w[:, :, :C], pp.get("b"), col3, row3)
+        return conv3x3_rollout(x, w[:, :, :C], p[k].get("b"), col3, row3,
+                               act[k] if act is not None else None,
+                               getattr(skip, k) if skip is not None else None,
+                               emit_stats)
 
     # block order per plane follows _rollout_cat:
     #   xy: [self, col-varying (m_yz_d), row-varying (m_xz_d)]
     #   xz: [self, row-varying (m_xy_w), col-varying (m_yz_w)]
     #   yz: [self, row-varying (m_xy_h), col-varying (m_xz_h)]
-    return Triplane(one(p["xy"], t.xy, m_yz_d, m_xz_d, True),
-                    one(p["xz"], t.xz, m_yz_w, m_xy_w, False),
-                    one(p["yz"], t.yz, m_xz_h, m_xy_h, False))
+    outs = (one("xy", t.xy, m_yz_d, m_xz_d, True),
+            one("xz", t.xz, m_yz_w, m_xy_w, False),
+            one("yz", t.yz, m_xz_h, m_xy_h, False))
+    if emit_stats:
+        return (Triplane(*[o[0] for o in outs]),
+                {k: o[1] for k, o in zip(PLANES, outs)})
+    return Triplane(*outs)
 
 
-def _tconv_apply(p: Dict, t: Triplane, rollout: bool) -> Triplane:
+def _tconv_apply(p: Dict, t: Triplane, rollout: bool,
+                 act: Dict = None) -> Triplane:
     is3 = p["xy"]["w"].shape[0] == 3
     if rollout:
         if is3 and min(t.sizes) >= 2:
-            return _tconv_apply_rollout_fast(p, t)
+            return _tconv_apply_rollout_fast(p, t, act=act)
+        if act is not None:
+            t = _act_triplane(t, act)
+            act = None
         t = _rollout_cat(t)
     if is3:
-        return Triplane(*[conv3x3_rollout(x, pp["w"], pp.get("b"))
-                          for pp, x in zip((p["xy"], p["xz"], p["yz"]), t)])
-    return Triplane(*[nn.conv2d(pp, x)
-                      for pp, x in zip((p["xy"], p["xz"], p["yz"]), t)])
+        return Triplane(*[conv3x3_rollout(
+            x, p[k]["w"], p[k].get("b"), None, None,
+            act[k] if act is not None else None)
+            for k, x in zip(PLANES, t)])
+    if act is not None:
+        t = _act_triplane(t, act)
+    return Triplane(*[nn.conv2d(p[k], x) for k, x in zip(PLANES, t)])
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +189,99 @@ def _tconv_apply(p: Dict, t: Triplane, rollout: bool) -> Triplane:
 # ---------------------------------------------------------------------------
 
 def _tnorm_apply(p: Dict, t: Triplane) -> Triplane:
-    return Triplane(*[nn.group_norm32(p[k], x)
-                      for k, x in zip(("xy", "xz", "yz"), t)])
+    return Triplane(*[nn.group_norm32(p[k], x) for k, x in zip(PLANES, t)])
 
 
 def _tnorm_silu_fast(p: Dict, t: Triplane, film=None) -> Triplane:
     return Triplane(*[nn.group_norm32_film_silu(p[k], x, film)
-                      for k, x in zip(("xy", "xz", "yz"), t)])
+                      for k, x in zip(PLANES, t)])
+
+
+def _use_fused_act() -> bool:
+    """`SIN3DM_FUSED_ACT=1`: norm + FiLM + SiLU applied inside K1′."""
+    return os.environ.get("SIN3DM_FUSED_ACT", "0") == "1"
+
+
+def _use_stats_chain() -> bool:
+    """`SIN3DM_STATS_CHAIN=1`: GroupNorm statistics chained through K1′'s
+    epilogues (ignored where `SIN3DM_FUSED_ACT=1`)."""
+    return os.environ.get("SIN3DM_STATS_CHAIN", "0") == "1"
+
+
+def _tnorm_coeffs(p: Dict, t: Triplane, film=None) -> Dict:
+    """Per-plane folded GN32[+FiLM]+SiLU coefficients (A, B) for K1′."""
+    return {k: nn.group_norm32_film_coeffs(p[k], x, film)
+            for k, x in zip(PLANES, t)}
+
+
+def _tnorm_coeffs_from_stats(p: Dict, stats: Dict, sizes,
+                             film=None) -> Dict:
+    """The same from chained (sum, sum of squares) statistics."""
+    H, W, D = sizes
+    n_hw = {"xy": H * W, "xz": H * D, "yz": W * D}
+    return {k: nn.group_norm32_coeffs_from_sums(p[k], stats[k], n_hw[k],
+                                                film)
+            for k in PLANES}
+
+
+def _stats_block_ok(p: Dict, t: Triplane, rollout: bool) -> bool:
+    """Whether a resblock runs stats-chained: 3x3 rollout convs on the
+    fast path and both convs' input widths within 128 channels, the
+    widths at which the JAX kernel emits statistics.  JAX checks only
+    the in conv's width and raises where the out conv's exceeds 128
+    (e.g. model_channels 96, mult (1, 2)); the port leaves that block
+    unchained."""
+    return (rollout and p["in_conv"]["xy"]["w"].shape[0] == 3
+            and min(t.sizes) >= 2 and t.channels <= 128
+            and p["out_conv"]["xy"]["w"].shape[2] // 3 <= 128)
+
+
+def _resblock_apply_stats(p: Dict, t: Triplane, t_stats: Optional[Dict],
+                          emb: torch.Tensor, use_scale_shift: bool):
+    """Stats-chained resblock: GroupNorm coefficients from the previous
+    conv's (sum, sum of squares) where given, norm + FiLM + SiLU inside
+    K1′, the residual add in the out conv's epilogue.  Returns (out,
+    out_stats); out_stats feed the next block's in norm (or the final
+    norm).  The FiLM is split from the fp32 `emb_out`."""
+    a1 = (_tnorm_coeffs_from_stats(p["in_norm"], t_stats, t.sizes)
+          if t_stats is not None else _tnorm_coeffs(p["in_norm"], t))
+    h, h_stats = _tconv_apply_rollout_fast(p["in_conv"], t, act=a1,
+                                           emit_stats=True)
+    emb_out = nn.linear(p["emb"], nn.silu(emb))[:, None, None, :]
+    if use_scale_shift:
+        film = tuple(torch.chunk(emb_out, 2, dim=-1))
+        a2 = _tnorm_coeffs_from_stats(p["out_norm"], h_stats, h.sizes,
+                                      film=film)
+    else:
+        # the emb add lands between conv and norm: the stats no longer
+        # describe the normed tensor
+        h = h.map(lambda v: v + emb_out.to(v.dtype))
+        a2 = _tnorm_coeffs(p["out_norm"], h)
+    skip = _tconv_apply(p["skip"], t, rollout=False) if "skip" in p else t
+    return _tconv_apply_rollout_fast(p["out_conv"], h, act=a2, skip=skip,
+                                     emit_stats=True)
 
 
 def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
                     use_scale_shift: bool, rollout: bool,
                     fast_norm: bool) -> Triplane:
+    if _use_fused_act():
+        # norm + FiLM + SiLU as coefficients applied inside K1′
+        a1 = _tnorm_coeffs(p["in_norm"], t)
+        h = _tconv_apply(p["in_conv"], t, rollout, act=a1)
+        emb_out = nn.linear(p["emb"], nn.silu(emb)).to(h.dtype)
+        emb_out = emb_out[:, None, None, :]
+        if use_scale_shift:
+            a2 = _tnorm_coeffs(p["out_norm"], h,
+                               film=tuple(torch.chunk(emb_out, 2, dim=-1)))
+        else:
+            h = h.map(lambda v: v + emb_out)
+            a2 = _tnorm_coeffs(p["out_norm"], h)
+        h = _tconv_apply(p["out_conv"], h, rollout, act=a2)
+        skip = _tconv_apply(p["skip"], t, rollout=False) if "skip" in p \
+            else t
+        return h + skip
+
     if fast_norm:
         h = _tnorm_silu_fast(p["in_norm"], t)
     else:
@@ -187,6 +320,11 @@ def _resize_to(t: Triplane, ref: Triplane) -> Triplane:
                       for cur, tgt in zip(t, ref)])
 
 
+def _stats_chain_on(cfg: UNetConfig) -> bool:
+    return (cfg.compute_dtype.itemsize <= 2 and not _use_fused_act()
+            and _use_stats_chain())
+
+
 @torch.no_grad()
 def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
                timesteps: torch.Tensor) -> Triplane:
@@ -199,33 +337,47 @@ def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
     h = x.to(cfg.compute_dtype)
     h = _tconv_apply(params["in_conv"], h, rollout=False)
 
-    def block(bp, t):
+    # the (sum, sum of squares) of h where a chained block made it; None
+    # wherever h changed outside a chained conv
+    use_stats = _stats_chain_on(cfg)
+    h_stats = None
+
+    def block(bp, t, t_stats):
+        if use_stats and _stats_block_ok(bp, t, cfg.rollout):
+            return _resblock_apply_stats(bp, t, t_stats, emb,
+                                         cfg.use_scale_shift_norm)
         return _resblock_apply(bp, t, emb, cfg.use_scale_shift_norm,
-                               cfg.rollout, cfg.fast_norm)
+                               cfg.rollout, cfg.fast_norm), None
 
     hs = []
     for level, blocks in enumerate(params["down"]):
         if level != 0:
             h = h.map(nn.avg_pool2x)
+            h_stats = None
         for bp in blocks:
-            h = block(bp, h)
+            h, h_stats = block(bp, h, h_stats)
         hs.append(h)
 
     n_levels = len(params["up"])
     for level, blocks in enumerate(params["up"]):
         if level == 0:
-            h = hs.pop()
+            h = hs.pop()      # the same tensor: its stats carry over
         else:
             skip = hs.pop()
             h = _resize_to(h, skip)
             h = Triplane(*[torch.cat([a, s], dim=-1)
                            for a, s in zip(h, skip)])
+            h_stats = None
         for bp in blocks:
-            h = block(bp, h)
+            h, h_stats = block(bp, h, h_stats)
         if level < n_levels - 1:
             h = h.map(nn.upsample2x_bilinear)
+            h_stats = None
 
-    if cfg.fast_norm:
+    if h_stats is not None:
+        h = _act_triplane(h, _tnorm_coeffs_from_stats(
+            params["out"]["norm"], h_stats, h.sizes))
+    elif cfg.fast_norm:
         h = _tnorm_silu_fast(params["out"]["norm"], h)
     else:
         h = _tnorm_apply(params["out"]["norm"], h).map(nn.silu)
@@ -233,8 +385,51 @@ def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
     return h.to(x.dtype)
 
 
+def _block_widths(cfg: UNetConfig):
+    """(in width, out width) of every resblock in forward order, as
+    `init_unet` builds them (the first up block of each level but the
+    deepest takes the skip concat)."""
+    mc = cfg.model_channels
+    ch = int(cfg.channel_mult[0] * mc)
+    chans, out = [ch], []
+    for mult in cfg.channel_mult:
+        for _ in range(cfg.num_res_blocks):
+            out.append((ch, int(mult * mc)))
+            ch = int(mult * mc)
+        chans.append(ch)
+    last = len(cfg.channel_mult) - 1
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        ich_level = chans.pop()
+        for i in range(cfg.num_res_blocks):
+            ich = ich_level if i == 0 and level != last else 0
+            out.append((ch + ich, int(mult * mc)))
+            ch = int(mult * mc)
+    return out
+
+
+def k1_launches_by_form(cfg: UNetConfig) -> Dict[str, int]:
+    """K1 launches one forward makes, by form (`ops.fused_conv.form_name`),
+    in the configuration the environment selects now: two 3x3 triplane
+    convs per resblock, three planes each (the 1x1 in/out/skip convs are
+    not K1).  Assumes every level's planes are at least 2 on each side
+    (below that, act applies outside the kernel and no block chains)."""
+    fused_act, chain = _use_fused_act(), _stats_chain_on(cfg)
+    counts: Dict[str, int] = {}
+
+    def add(form, n):
+        counts[form] = counts.get(form, 0) + n
+
+    for cin, cout in _block_widths(cfg):
+        if chain and cfg.rollout and cin <= 128 and cout <= 128:
+            add(form_name(True, False, True), 3)
+            add(form_name(True, True, True), 3)
+        elif fused_act:
+            add(form_name(True, False, False), 6)
+        else:
+            add(form_name(False, False, False), 6)
+    return counts
+
+
 def k1_launches_per_forward(cfg: UNetConfig) -> int:
-    """How many K1 launches one forward makes: two 3x3 triplane convs per
-    resblock, three planes each, over the down and the up path (the 1x1
-    in/out/skip convs are not K1)."""
-    return 2 * 3 * cfg.num_res_blocks * 2 * len(cfg.channel_mult)
+    """How many K1 launches one forward makes, all forms together."""
+    return sum(k1_launches_by_form(cfg).values())

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1 and K2 against their plain
-versions at edge shapes the main path does not reach (sizes of 1 and 2,
-channel counts off the 16-byte vector width, ragged row and channel
-tiles), the launch counters, and the wrappers' refusals.
+"""The port's CUDA kernels on the card: K1, its act/skip/emit_stats forms
+K1′ and K2 against their plain versions at edge shapes the main path does
+not reach (sizes of 1 and 2, channel counts off the 16-byte vector width,
+ragged row and channel tiles, stats blocks that end mid-row of a batch
+item), the launch counters, and the wrappers' refusals.
 
 Every test needs an NVIDIA card and skips without one.  The file imports
 no JAX, so on the card it runs without the suite's conftest:
@@ -67,6 +68,89 @@ def test_k1_edge_shapes(card, B, H, W, C, Co, rollout, dt):
     else:
         tol = torch.full_like(ref, F32_TOL * scale)
     assert ((got - ref).abs() <= tol).all()
+
+
+def _y_tol(ref, dt):
+    """K1's per-element tolerance against its plain version (see
+    `test_k1_edge_shapes`)."""
+    scale = ref.abs().max().item()
+    if dt == torch.bfloat16:
+        return 2 * BF16_ULP * (ref.abs() + 0.01 * scale)
+    return torch.full_like(ref, F32_TOL * scale)
+
+
+def _check_stats(got_y, got_s, ref_y, ref_s, tol):
+    """Stats of the kernel against (a) fp64 sums of its own rounded y: the
+    two differ by fp32 summation order only, at most k * 2^-24 of the sum
+    of |terms| for k-term sequential sums (the kernel sums 32 rows a
+    thread, then 2 threads, then the torch sum of the block partials:
+    k < 64 at the card's sizes), so 1e-5 of sum |y| (sum y^2); and
+    (b) the plain version's stats: each y element may differ by its
+    tolerance `tol`, so the sums may differ by the sum of those
+    differences (sum of 2|y| tol + tol^2 for the squares) on top."""
+    yk = got_y.double()
+    own = torch.stack([yk.sum(dim=(1, 2)), (yk * yk).sum(dim=(1, 2))], 1)
+    mass = torch.stack([yk.abs().sum(dim=(1, 2)),
+                        (yk * yk).sum(dim=(1, 2))], 1)
+    assert ((got_s.double() - own).abs() <= 1e-5 * mass + 1e-30).all()
+    t = tol.double()
+    ya = ref_y.double().abs()
+    slack = torch.stack([t.sum(dim=(1, 2)),
+                         (2 * ya * t + t * t).sum(dim=(1, 2))], 1)
+    assert ((got_s.double() - ref_s.double()).abs()
+            <= slack + 1e-5 * mass + 1e-30).all()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["act", "act+stats", "act+skip+stats",
+                                  "skip", "stats"])
+@pytest.mark.parametrize("B,H,W,C,Co,rollout", [
+    (1, 1, 1, 32, 32, True),      # one pixel: the halo is all of the taps
+    (1, 2, 3, 32, 32, True),      # every pixel on a border
+    (2, 9, 17, 12, 20, True),     # C and Co off the vector width
+    (3, 9, 17, 32, 64, True),     # 153 pixels: blocks end mid-row, per item
+    (2, 7, 10, 192, 64, True),    # the up path's 192-channel input
+    (1, 5, 70, 33, 70, False),    # plain conv, odd C, ragged tiles
+])
+def test_k1_forms_edge_shapes(card, B, H, W, C, Co, rollout, form, dt):
+    g = torch.Generator().manual_seed(B * 1000 + H * 100 + C + len(form))
+    x = _randn(g, B, H, W, C).to(card, dt)
+    w = _randn(g, 3, 3, C, Co, scale=(9 * C) ** -0.5).to(card)
+    b = _randn(g, Co, scale=0.1).to(card)
+    col3 = _randn(g, B, W, 3, Co, scale=0.3).to(card, dt) if rollout else None
+    row3 = _randn(g, B, H, 3, Co, scale=0.3).to(card, dt) if rollout else None
+    act = ((1.0 + _randn(g, B, C, scale=0.3)).to(card),
+           _randn(g, B, C, scale=0.5).to(card)) if "act" in form else None
+    skip = _randn(g, B, H, W, Co).to(card, dt) if "skip" in form else None
+    stats = "stats" in form
+    before = dict(tfc.conv3x3_rollout.form_launches)
+    got = tfc.conv3x3_rollout(x, w, b, col3, row3, act, skip, stats)
+    after = tfc.conv3x3_rollout.form_launches
+    assert after[form] == before.get(form, 0) + 1
+    ref = tfc.conv3x3_rollout_reference(x, w, b, col3, row3, act, skip,
+                                        stats)
+    torch.cuda.synchronize()
+    (got_y, got_s), (ref_y, ref_s) = (got, ref) if stats else \
+        ((got, None), (ref, None))
+    assert got_y.dtype == dt and got_y.shape == (B, H, W, Co)
+    got_y, ref_y = got_y.float(), ref_y.float()
+    tol = _y_tol(ref_y, dt)
+    assert ((got_y - ref_y).abs() <= tol).all()
+    if stats:
+        assert got_s.dtype == torch.float32 and got_s.shape == (B, 2, Co)
+        _check_stats(got_y, got_s, ref_y, ref_s, tol)
+
+
+def test_k1_stats_are_the_same_every_run(card):
+    """No atomics: two launches on the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(7)
+    B, H, W, C, Co = 2, 46, 64, 128, 128
+    x = _randn(g, B, H, W, C).to(card, torch.bfloat16)
+    w = _randn(g, 3, 3, C, Co, scale=(9 * C) ** -0.5).to(card)
+    act = (torch.ones(B, C, device=card), torch.zeros(B, C, device=card))
+    y1, s1 = tfc.conv3x3_rollout(x, w, None, act=act, emit_stats=True)
+    y2, s2 = tfc.conv3x3_rollout(x, w, None, act=act, emit_stats=True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def _skip_head(g, cin, cout, hidden, n_hidden):

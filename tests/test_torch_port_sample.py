@@ -24,6 +24,7 @@ from sin3dm_tpu.models.unet import UNetConfig, init_unet, unet_apply
 from sin3dm_tpu.training.ae import AETrainer, AETrainerConfig
 from sin3dm_tpu_torch.cli import sample as cli
 from sin3dm_tpu_torch.core.triplane import Triplane as TT
+from sin3dm_tpu_torch.core.triplane import save_triplane_npz
 
 torch.set_num_threads(2)
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -113,6 +114,15 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got[settled], want[settled])
 
 
+# the modules on the stats-chain, fused-act and --inpaint paths, named
+# so that the walk cannot miss them
+CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
+           "sin3dm_tpu_torch.models.unet",
+           "sin3dm_tpu_torch.diffusion.gaussian",
+           "sin3dm_tpu_torch.diffusion.sampling",
+           "sin3dm_tpu_torch.cli.sample"}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -120,6 +130,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "assert len(names) >= 20, names\n"
+        f"assert not set({sorted(CHANGED)}) - set(names), names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -159,11 +170,45 @@ def test_cli_defaults_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--sample_devices", "2"], "data-parallel"),
-    (["--inpaint", "true"], "masked generation"),
 ])
 def test_options_of_later_slices_raise(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(_argv(tmp_path, *extra))
+
+
+def test_cli_inpaint_cpu_keeps_y0_outside_the_region(tmp_path,
+                                                     monkeypatch):
+    """`--inpaint` under the stats chain at a small size: a known triplane
+    of the target size (y0, `--inpaint_feat`) is kept outside the box
+    that regenerates the first half of x, as `tests/test_e2e.py` checks
+    the JAX CLI: with `--is_mask_t0` the kept rows of xy and xz equal y0,
+    yz (whose cells all support kept points) equals it everywhere, and
+    the regenerated half moved."""
+    monkeypatch.setenv("SIN3DM_STATS_CHAIN", "1")
+    H, W, D = 11, 16, 11
+    rng = np.random.default_rng(0)
+    y0 = TT(*[torch.from_numpy((0.5 * rng.standard_normal(s)).astype(
+        np.float32)) for s in ((H, W, 12), (H, D, 12), (W, D, 12))])
+    y0_path = str(tmp_path / "y0" / "feat.npz")
+    save_triplane_npz(y0_path, y0)
+    res = cli.main(_argv(tmp_path / "out", "--n_samples", "2",
+                         "--inpaint", "true", "--inpaint_feat", y0_path,
+                         "--inpaint_region", "0", "0.5", "0", "1", "0", "1",
+                         "--is_mask_t0", "true"))
+    want = np.load(y0_path)
+    h2 = round(0.5 * H)     # region_keep_masks' rule: rows [0, 6) go
+    for path in res["paths"]:
+        got = np.load(path)
+        np.testing.assert_allclose(got["feat_xy"][:, h2:],
+                                   want["feat_xy"][:, h2:], atol=1e-5)
+        np.testing.assert_allclose(got["feat_xz"][:, h2:],
+                                   want["feat_xz"][:, h2:], atol=1e-5)
+        np.testing.assert_allclose(got["feat_yz"], want["feat_yz"],
+                                   atol=1e-5)
+        assert np.abs(got["feat_xy"][:, :h2]
+                      - want["feat_xy"][:, :h2]).max() > 1e-3
+        assert os.path.exists(os.path.join(os.path.dirname(path),
+                                           "r32_voxel.npz"))
 
 
 def test_mesh_path_is_a_later_slice(tmp_path):
