@@ -12,9 +12,13 @@ of this repository.  Phases, each printing its results:
 3. kernels against their plain versions on the card at the main path's
    shapes, in bf16 and fp32, with error, tolerance and median times of
    kernel, plain version and a library yardstick (cuDNN conv + epilogue
-   for K1 and K1′, a bf16 torch.matmul chain for K2) that the port never
-   calls: K1's default form, then K1′ (act, act+stats, act+skip+stats)
-   at every shape where the opt-in configurations run it;
+   for K1 and K1′, with and without cudnn.benchmark; a bf16 torch.matmul
+   chain for K2) that the port never calls, each by CUDA events and, for
+   kernel and yardstick, as device time from the profiler, and the K1
+   wrapper's host time per launch: K1's default form and K1′ (act,
+   act+stats, act+skip+stats) at every shape where a configuration runs
+   them, each triplane launch (weights packed once, as the UNet passes
+   them) also against its three single-plane launches, bit for bit;
 4. main path: `cli.sample.main(--tag checkpoints/towerruins --vox
    --n_samples 2)` (DDPM-1000, batch 2, --reso 256) with the launch
    counters set to 0 just before and read just after, output checks and
@@ -119,24 +123,52 @@ def nvidia_smi_line() -> str:
 # K1
 # ---------------------------------------------------------------------------
 
-def k1_shapes():
-    """(H, W, C, Co, calls per UNet forward in the default configuration,
-    {form: calls per forward under SIN3DM_STATS_CHAIN=1}) of every 3x3
-    conv of the towerruins UNet (planes 92x128 / 92x92 / 128x92 and their
-    halves).  Under SIN3DM_FUSED_ACT=1 every call is of the "act" form.
-    The stats chain chains the down blocks (64->64, 64->128) and the
-    deepest up block (128->128); the 192-channel up block stays default."""
-    level0 = [(92, 128), (92, 92), (128, 92)]
-    level1 = [(46, 64), (46, 46), (64, 46)]
+def k1_groups():
+    """The towerruins UNet's triplane 3x3 convs (planes 92x128 / 92x92 /
+    128x92 and their halves), one K1 launch each: (planes, C, Co,
+    launches per forward in the default configuration, {form: launches
+    per forward under SIN3DM_STATS_CHAIN=1}).  Under SIN3DM_FUSED_ACT=1
+    every launch is of the "act" form.  The stats chain chains the down
+    blocks (64->64, 64->128) and the deepest up block (128->128); the
+    192-channel up block stays default."""
+    level0 = ((92, 128), (92, 92), (128, 92))
+    level1 = ((46, 64), (46, 46), (64, 46))
+    return [(level0, 64, 64, 3, {"act+stats": 1, "act+skip+stats": 1,
+                                 "default": 1}),
+            (level0, 192, 64, 1, {"default": 1}),
+            (level1, 64, 128, 1, {"act+stats": 1}),
+            (level1, 128, 128, 3, {"act+stats": 1, "act+skip+stats": 2})]
+
+
+def group_inputs(g, B, planes, C, Co):
+    """Seeded fp32 operands of one triplane conv, per plane: x, w, b, col3,
+    row3, act, skip."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
     out = []
-    for H, W in level0:
-        out += [(H, W, 64, 64, 3, {"act+stats": 1, "act+skip+stats": 1,
-                                   "default": 1}),
-                (H, W, 192, 64, 1, {"default": 1})]
-    for H, W in level1:
-        out += [(H, W, 64, 128, 1, {"act+stats": 1}),
-                (H, W, 128, 128, 3, {"act+stats": 1, "act+skip+stats": 2})]
+    for H, W in planes:
+        out.append({"x": rnd(B, H, W, C),
+                    "w": rnd(3, 3, C, Co, scale=(9 * C) ** -0.5),
+                    "b": rnd(Co, scale=0.1),
+                    "col3": rnd(B, W, 3, Co, scale=0.3),
+                    "row3": rnd(B, H, 3, Co, scale=0.3),
+                    "act": (1.0 + rnd(B, C, scale=0.3), rnd(B, C, scale=0.5)),
+                    "skip": rnd(B, H, W, Co)})
     return out
+
+
+def plane_args(op, dt, form):
+    """conv3x3_rollout's arguments for one plane in `form`, in dtype dt."""
+    return (op["x"].to(dt), op["w"].to(dt), op["b"], op["col3"].to(dt),
+            op["row3"].to(dt), op["act"] if "act" in form else None,
+            op["skip"].to(dt) if "skip" in form else None, "stats" in form)
+
+
+def triplane_args(ops, dt, form):
+    per = [plane_args(op, dt, form) for op in ops]
+    return [[a[k] for a in per] for k in range(7)] + [per[0][7]]
 
 
 def k1_library(x, w, b, col3, row3):
@@ -153,79 +185,69 @@ def k1_library(x, w, b, col3, row3):
     return y + col3[:, :, ch].permute(0, 2, 1, 3) + row3[:, :, cw]
 
 
-def check_k1(B: int):
-    import torch
-    from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout,
-                                                 conv3x3_rollout_reference)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    flops_all = nbytes_all = 0.0
-    max_err = 0.0
-    for H, W, C, Co, calls, _ in k1_shapes():
-        def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device="cuda") * scale
-        x32 = rnd(B, H, W, C)
-        w32 = rnd(3, 3, C, Co, scale=(9 * C) ** -0.5)
-        b = rnd(Co, scale=0.1)
-        col32 = rnd(B, W, 3, Co, scale=0.3)
-        row32 = rnd(B, H, 3, Co, scale=0.3)
-        for dt in (torch.bfloat16, torch.float32):
-            x, w = x32.to(dt), w32.to(dt)
-            col3, row3 = col32.to(dt), row32.to(dt)
-            got = conv3x3_rollout(x, w, b, col3, row3).float()
-            ref = conv3x3_rollout_reference(x, w, b, col3, row3).float()
-            torch.cuda.synchronize()
-            err = (got - ref).abs()
-            scale = ref.abs().max().item()
-            ok = bool((err <= k1_tol(ref, dt)).all())
-            rel = (err / ref.abs().clamp_min(1e-3 * scale)).max().item()
-            print(f"K1 {str(dt)[6:]:8s} {H:3d}x{W:<3d} C={C:3d} Co={Co:3d}: "
-                  f"max_abs_err {err.max().item():.3e} max_rel_err "
-                  f"{rel:.3e} ({'ok' if ok else 'FAIL'})")
-            if not ok:
-                fail(f"K1 {dt} {H}x{W} C={C} Co={Co} disagrees with its "
-                     "plain version")
-            max_err = max(max_err, err.max().item())
-        # times at the main path's dtype (bf16)
-        x, w = x32.bfloat16(), w32.bfloat16()
-        col3, row3 = col32.bfloat16(), row32.bfloat16()
-        ms = time_ms(lambda: conv3x3_rollout(x, w, b, col3, row3))
-        plain = time_ms(lambda: conv3x3_rollout_reference(x, w, b, col3,
-                                                          row3))
-        lib = time_ms(lambda: k1_library(x, w, b, col3, row3))
-        flops = 2.0 * B * H * W * 9 * C * Co
-        nbytes = 2.0 * (B * H * W * C + 9 * C * Co + B * W * 3 * Co
-                        + B * H * 3 * Co + B * H * W * Co) + 4.0 * Co
-        bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        flops_all += calls * flops
-        nbytes_all += calls * nbytes
-        print(f"K1 bf16 {H:3d}x{W:<3d} C={C:3d} Co={Co:3d} x{calls}/fwd: "
-              f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
-              f"library {lib * 1e3:.2f} us, bound {bms * 1e3:.3f} us "
-              f"({by})")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
-            totals[k] += calls * v
-    totals["bound_ms"], by = bound(flops_all, nbytes_all, PEAK_BF16_FLOPS)
-    print(f"K1 per UNet forward (batch {B}, 24 launches): kernel "
-          f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, "
-          f"library {totals['library_ms']:.4f} ms, bound "
-          f"{totals['bound_ms']:.5f} ms")
-    return {**totals, "max_abs_err": max_err, "bound_by": by}
-
-
 def k1p_library(x, w, b, col3, row3, act, skip, emit_stats):
     """Yardstick for K1′: the activation as torch elementwise ops, cuDNN
     conv + the epilogue (`k1_library`), the skip add and torch sums."""
     import torch
     B, C = x.shape[0], x.shape[-1]
-    a = x.float() * act[0].reshape(B, 1, 1, C) + act[1].reshape(B, 1, 1, C)
-    y = k1_library((a * torch.sigmoid(a)).to(x.dtype), w, b, col3, row3)
+    if act is not None:
+        a = (x.float() * act[0].reshape(B, 1, 1, C)
+             + act[1].reshape(B, 1, 1, C))
+        x = (a * torch.sigmoid(a)).to(x.dtype)
+    y = k1_library(x, w, b, col3, row3)
     if skip is not None:
         y = y + skip
     if emit_stats:
         yf = y.float()
         return y, torch.stack([yf.sum((1, 2)), (yf * yf).sum((1, 2))], 1)
     return y
+
+
+def library_ms(fn) -> dict:
+    """The yardstick's time with cuDNN's default algorithm choice and with
+    `cudnn.benchmark` (it tries the algorithms and keeps the fastest), by
+    CUDA events and as device time of all its kernels."""
+    import torch
+    out = {}
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        key = "benchmark" if bench else "default"
+        out[key] = time_ms(fn)
+        out[key + "_device"] = device_ms(fn)
+    torch.backends.cudnn.benchmark = False
+    return out
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time per call over `calls` calls issued back to back (the
+    card's queue does not fill at these sizes), after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / calls
+
+
+def device_ms(fn, name: str = "", calls: int = 10) -> float:
+    """Device time per call of the kernels whose name holds `name` (all
+    of them by default), from torch.profiler over `calls` calls (nan if
+    it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / calls if us else float("nan")
 
 
 def k1_tol(ref, dt):
@@ -255,94 +277,153 @@ def stats_errors(got_y, got_s, ref_y, ref_s, tol):
     return e_own, e_ref
 
 
-def check_k1p(B: int):
-    """K1′ against its plain version at every main-path shape where a form
-    runs: act at all 12 (the fused act), act+stats and act+skip+stats
-    where the stats chain puts them.  Times in bf16.  Returns per form
-    {ms, plain_ms, library_ms (per forward of its configuration), flops,
-    nbytes, max_abs_err}."""
+def k1_bound_parts(B, planes, C, Co, form):
+    """(operations, bytes) of one triplane launch: each input read once,
+    each output written once."""
+    flops = nbytes = 0.0
+    for H, W in planes:
+        flops += 2.0 * B * H * W * 9 * C * Co
+        nbytes += (2.0 * (B * H * W * C + 9 * C * Co + B * W * 3 * Co
+                          + B * H * 3 * Co + B * H * W * Co) + 4.0 * Co
+                   + (4.0 * 2 * B * C if "act" in form else 0.0)
+                   + (2.0 * B * H * W * Co if "skip" in form else 0.0)
+                   + (4.0 * B * 2 * Co if "stats" in form else 0.0))
+    return flops, nbytes
+
+
+def check_k1_forms(B: int):
+    """K1 and K1′ against their plain versions at every main-path plane
+    shape where a form runs (default and act everywhere, the stats forms
+    where the stats chain puts them), bf16 and fp32, one plane at a time;
+    the triplane launch, its weights packed once as the UNet passes them,
+    against the three single-plane launches, bit for bit, in every form;
+    times per triplane launch in bf16 (kernel by CUDA events with
+    `time_ms`, its device time from the profiler, the wrapper's host
+    time, the plain version, the cuDNN yardstick without and with
+    cudnn.benchmark, by events and as device time).  Returns per form
+    {ms, device_ms, host_ms, plain_ms, library_ms (the faster yardstick
+    by events), library_default_ms, library_benchmark_ms,
+    library_device_ms (the faster by device time), flops, nbytes,
+    max_abs_err, launches, and default_ms / default_device_ms: the default
+    form over the same launches} per forward of its configuration."""
     import torch
     from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout,
-                                                 conv3x3_rollout_reference)
+                                                 conv3x3_rollout_reference,
+                                                 conv3x3_rollout_triplane,
+                                                 pack_conv_weights)
     g = torch.Generator(device="cuda").manual_seed(4)
-    forms = {f: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                 "flops": 0.0, "nbytes": 0.0, "max_abs_err": 0.0,
-                 "calls": 0}
-             for f in ("act", "act+stats", "act+skip+stats")}
-    for H, W, C, Co, calls, chained in k1_shapes():
-        def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device="cuda") * scale
-        x32 = rnd(B, H, W, C)
-        w32 = rnd(3, 3, C, Co, scale=(9 * C) ** -0.5)
-        b = rnd(Co, scale=0.1)
-        col32 = rnd(B, W, 3, Co, scale=0.3)
-        row32 = rnd(B, H, 3, Co, scale=0.3)
-        act = (1.0 + rnd(B, C, scale=0.3), rnd(B, C, scale=0.5))
-        skip32 = rnd(B, H, W, Co)
-        for form in forms:
-            n = calls if form == "act" else chained.get(form, 0)
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "library_default_ms", "library_benchmark_ms",
+            "library_device_ms", "flops", "nbytes")
+    forms = {f: {**{k: 0.0 for k in keys}, "max_abs_err": 0.0,
+                 "launches": 0, "default_ms": 0.0, "default_device_ms": 0.0}
+             for f in ("default", "act", "act+stats", "act+skip+stats")}
+    per_group = {}    # (C, Co) -> the default form's (ms, device ms)
+    n_bitwise = 0
+    for planes, C, Co, calls, chained in k1_groups():
+        ops = group_inputs(g, B, planes, C, Co)
+        packed = [pack_conv_weights(op["w"]) for op in ops]
+        for form, f in forms.items():
+            n = calls if form in ("default", "act") else chained.get(form, 0)
             if not n:
                 continue
-            has_skip, stats = "skip" in form, "stats" in form
+            stats = "stats" in form
             for dt in (torch.bfloat16, torch.float32):
-                x, w = x32.to(dt), w32.to(dt)
-                col3, row3 = col32.to(dt), row32.to(dt)
-                skip = skip32.to(dt) if has_skip else None
-                got = conv3x3_rollout(x, w, b, col3, row3, act, skip, stats)
-                ref = conv3x3_rollout_reference(x, w, b, col3, row3, act,
-                                                skip, stats)
+                singles = []
+                for (H, W), op in zip(planes, ops):
+                    args = plane_args(op, dt, form)
+                    got = conv3x3_rollout(*args)
+                    ref = conv3x3_rollout_reference(*args)
+                    torch.cuda.synchronize()
+                    singles.append(got)
+                    (gy, gs), (ry, rs) = (got, ref) if stats else \
+                        ((got, None), (ref, None))
+                    gy, ry = gy.float(), ry.float()
+                    err = (gy - ry).abs()
+                    tol = k1_tol(ry, dt)
+                    ok = bool((err <= tol).all())
+                    line = (f"K1 {form:14s} {str(dt)[6:]:8s} {H:3d}x{W:<3d} "
+                            f"C={C:3d} Co={Co:3d}: max_abs_err "
+                            f"{err.max().item():.3e}")
+                    if stats:
+                        e_own, e_ref = stats_errors(gy, gs, ry, rs, tol)
+                        ok = ok and e_own <= 1.0 and e_ref <= 1.0
+                        line += (f", stats err {e_own:.3f} of its own-sum "
+                                 f"allowance, {e_ref:.3f} of the "
+                                 "plain-version allowance")
+                    print(f"{line} ({'ok' if ok else 'FAIL'})")
+                    if not ok:
+                        fail(f"K1 {form} {dt} {H}x{W} C={C} Co={Co} "
+                             "disagrees with its plain version")
+                    f["max_abs_err"] = max(f["max_abs_err"],
+                                           err.max().item())
+                # one triplane launch equals the three single-plane ones
+                tri = conv3x3_rollout_triplane(*triplane_args(ops, dt, form),
+                                               packed=packed)
                 torch.cuda.synchronize()
-                (gy, gs), (ry, rs) = (got, ref) if stats else \
-                    ((got, None), (ref, None))
-                gy, ry = gy.float(), ry.float()
-                err = (gy - ry).abs()
-                tol = k1_tol(ry, dt)
-                ok = bool((err <= tol).all())
-                line = (f"K1' {form:14s} {str(dt)[6:]:8s} {H:3d}x{W:<3d} "
-                        f"C={C:3d} Co={Co:3d}: max_abs_err "
-                        f"{err.max().item():.3e}")
-                if stats:
-                    e_own, e_ref = stats_errors(gy, gs, ry, rs, tol)
-                    ok = ok and e_own <= 1.0 and e_ref <= 1.0
-                    line += (f", stats err {e_own:.3f} of its own-sum "
-                             f"allowance, {e_ref:.3f} of the plain-version "
-                             "allowance")
-                print(f"{line} ({'ok' if ok else 'FAIL'})")
-                if not ok:
-                    fail(f"K1' {form} {dt} {H}x{W} C={C} Co={Co} disagrees "
-                         "with its plain version")
-                forms[form]["max_abs_err"] = max(forms[form]["max_abs_err"],
-                                                 err.max().item())
-            x, w = x32.bfloat16(), w32.bfloat16()
-            col3, row3 = col32.bfloat16(), row32.bfloat16()
-            skip = skip32.bfloat16() if has_skip else None
-            args = (x, w, b, col3, row3, act, skip, stats)
-            ms = time_ms(lambda: conv3x3_rollout(*args))
-            plain = time_ms(lambda: conv3x3_rollout_reference(*args))
-            lib = time_ms(lambda: k1p_library(*args))
-            flops = 2.0 * B * H * W * 9 * C * Co
-            nbytes = (2.0 * (B * H * W * C + 9 * C * Co + B * W * 3 * Co
-                             + B * H * 3 * Co + B * H * W * Co) + 4.0 * Co
-                      + 4.0 * 2 * B * C
-                      + (2.0 * B * H * W * Co if has_skip else 0.0)
-                      + (4.0 * B * 2 * Co if stats else 0.0))
+                ty, ts = tri if stats else (tri, None)
+                for i, one in enumerate(singles):
+                    sy, ss = one if stats else (one, None)
+                    same = torch.equal(ty[i], sy) and (
+                        not stats or torch.equal(ts[i], ss))
+                    n_bitwise += 1
+                    if not same:
+                        fail(f"K1 {form} {dt} C={C} Co={Co}: the triplane "
+                             f"launch differs from plane {i}'s own launch")
+            print(f"K1 {form} C={C} Co={Co} planes {list(planes)}: triplane "
+                  "launch equals the three single-plane launches bit for "
+                  "bit (bf16, fp32)")
+            ta = triplane_args(ops, torch.bfloat16, form)
+            per = [plane_args(op, torch.bfloat16, form) for op in ops]
+            def launch():
+                return conv3x3_rollout_triplane(*ta, packed=packed)
+
+            ms = time_ms(launch)
+            dev = device_ms(launch, "conv3x3_bf16")
+            host = host_ms(launch)
+            plain = time_ms(lambda: [conv3x3_rollout_reference(*a)
+                                     for a in per])
+            lib = library_ms(lambda: [k1p_library(*a) for a in per])
+            lib_dev = min(lib["default_device"], lib["benchmark_device"])
+            flops, nbytes = k1_bound_parts(B, planes, C, Co, form)
             bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            print(f"K1' {form:14s} bf16 {H:3d}x{W:<3d} C={C:3d} Co={Co:3d} "
-                  f"x{n}/fwd: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain * 1e3:.2f} us, library {lib * 1e3:.2f} us, "
-                  f"bound {bms * 1e3:.3f} us ({by})")
-            f = forms[form]
-            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+            print(f"K1 {form:14s} bf16 triplane C={C:3d} Co={Co:3d} x{n}/fwd: "
+                  f"kernel {ms * 1e3:.2f} us (device {dev * 1e3:.2f} us, "
+                  f"wrapper host {host * 1e3:.2f} us), plain "
+                  f"{plain * 1e3:.2f} us, library {lib['default'] * 1e3:.2f}"
+                  f" us (device {lib['default_device'] * 1e3:.2f} us; "
+                  f"cudnn.benchmark {lib['benchmark'] * 1e3:.2f} us, device "
+                  f"{lib['benchmark_device'] * 1e3:.2f} us), bound "
+                  f"{bms * 1e3:.3f} us ({by})")
+            if form == "default":
+                per_group[(C, Co)] = (ms, dev)
+            else:   # the default form over the same launches, to compare
+                f["default_ms"] += n * per_group[(C, Co)][0]
+                f["default_device_ms"] += n * per_group[(C, Co)][1]
+            for k, v in (("ms", ms), ("device_ms", dev), ("host_ms", host),
+                         ("plain_ms", plain),
+                         ("library_ms", min(lib["default"],
+                                            lib["benchmark"])),
+                         ("library_default_ms", lib["default"]),
+                         ("library_benchmark_ms", lib["benchmark"]),
+                         ("library_device_ms", lib_dev),
                          ("flops", flops), ("nbytes", nbytes)):
                 f[k] += n * v
-            f["calls"] += n
+            f["launches"] += n
     for form, f in forms.items():
         f["bound_ms"], f["bound_by"] = bound(f["flops"], f["nbytes"],
                                              PEAK_BF16_FLOPS)
-        print(f"K1' {form} per UNet forward (batch {B}, {f['calls']} "
-              f"launches): kernel {f['ms']:.4f} ms, plain "
-              f"{f['plain_ms']:.4f} ms, library {f['library_ms']:.4f} ms, "
-              f"bound {f['bound_ms']:.5f} ms ({f['bound_by']})")
+        print(f"K1 {form} per UNet forward of its configuration (batch {B}, "
+              f"{f['launches']} launches): kernel {f['ms']:.4f} ms (device "
+              f"{f['device_ms']:.4f} ms, wrapper host {f['host_ms']:.4f} "
+              f"ms), plain {f['plain_ms']:.4f} ms, library "
+              f"{f['library_ms']:.4f} ms (default "
+              f"{f['library_default_ms']:.4f}, cudnn.benchmark "
+              f"{f['library_benchmark_ms']:.4f}; device "
+              f"{f['library_device_ms']:.4f}), bound {f['bound_ms']:.5f} "
+              f"ms ({f['bound_by']})")
+    print(f"K1: {n_bitwise} triplane planes equal their single-plane "
+          "launches bit for bit")
     return forms
 
 
@@ -371,7 +452,8 @@ def check_k2(ae_params, n_rows: int):
     import torch
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
     g = torch.Generator(device="cuda").manual_seed(2)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+              "library_ms": 0.0, "library_device_ms": 0.0, "bound_ms": 0.0}
     flops_all = nbytes_all = 0.0
     max_err = 0.0
     for head in ("geo_decoder", "tex_decoder"):
@@ -395,9 +477,12 @@ def check_k2(ae_params, n_rows: int):
             max_err = max(max_err, err)
         ms = time_ms(lambda: skip_mlp(params, x, mxu_dtype=torch.bfloat16),
                      iters=5)
+        dev = device_ms(lambda: skip_mlp(params, x, mxu_dtype=torch.bfloat16),
+                        "mlp_bf16", calls=5)
         plain = time_ms(lambda: skip_mlp_reference(params, x,
                                                    torch.bfloat16), iters=5)
         lib = time_ms(lambda: k2_library(params, x), iters=5)
+        lib_dev = device_ms(lambda: k2_library(params, x), calls=5)
         layers = params["first"] + params["second"]
         flops = 2.0 * n_rows * sum(lp["w"].shape[0] * lp["w"].shape[1]
                                    for lp in layers)
@@ -406,17 +491,27 @@ def check_k2(ae_params, n_rows: int):
                   + sum(2.0 * lp["w"].numel() + 4.0 * lp["b"].numel()
                         for lp in layers))
         bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        print(f"K2 bf16 {head} N={n_rows}: kernel {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, library {lib:.3f} ms, bound {bms:.3f} ms "
-              f"({by}), {flops / ms / 1e9:.1f} TFLOP/s")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
+        print(f"K2 bf16 {head} N={n_rows}: kernel {ms:.3f} ms (device "
+              f"{dev:.3f} ms), plain {plain:.3f} ms, library {lib:.3f} ms "
+              f"(device {lib_dev:.3f} ms), bound {bms:.3f} ms ({by}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+        for k, v in (("ms", ms), ("device_ms", dev), ("plain_ms", plain),
+                     ("library_ms", lib), ("library_device_ms", lib_dev)):
             totals[k] += v
         flops_all += flops
         nbytes_all += nbytes
     totals["bound_ms"], by = bound(flops_all, nbytes_all, PEAK_BF16_FLOPS)
-    print(f"K2 per slab (both heads): kernel {totals['ms']:.3f} ms, plain "
-          f"{totals['plain_ms']:.3f} ms, library {totals['library_ms']:.3f} "
-          f"ms, bound {totals['bound_ms']:.3f} ms")
+    print(f"K2 per slab (both heads): kernel {totals['ms']:.3f} ms (device "
+          f"{totals['device_ms']:.3f}), plain {totals['plain_ms']:.3f} ms, "
+          f"library {totals['library_ms']:.3f} ms (device "
+          f"{totals['library_device_ms']:.3f}), bound "
+          f"{totals['bound_ms']:.3f} ms ({by}): "
+          f"{totals['bound_ms'] / totals['ms']:.1%} of the bound by events, "
+          f"{totals['bound_ms'] / totals['device_ms']:.1%} by device time; "
+          f"{totals['library_ms'] / totals['ms']:.2f}x the library's speed "
+          "by events, "
+          f"{totals['library_device_ms'] / totals['device_ms']:.2f}x by "
+          "device time")
     return {**totals, "max_abs_err": max_err, "bound_by": by}
 
 
@@ -635,7 +730,7 @@ def main() -> int:
     from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
     from sin3dm_tpu_torch.core import checkpoint as ckpt
     from sin3dm_tpu_torch.models.unet import k1_launches_by_form
-    from sin3dm_tpu_torch.ops import _build
+    from sin3dm_tpu_torch.ops import _build, pack_params
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -658,11 +753,12 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     B = 2
-    k1 = check_k1(B)
-    k1p = check_k1p(B)
+    k1f = check_k1_forms(B)
+    k1 = k1f["default"]
+    k1p = {f: k1f[f] for f in ("act", "act+stats", "act+skip+stats")}
     tree, meta = ckpt.load_tree(os.path.join(
         TAG, "encoding", "ckpt_final.pth"), "params")
-    ae_params = ae_params_from_jax(tree, "cuda")
+    ae_params = pack_params(ae_params_from_jax(tree, "cuda"))
     gx, gy, gz = meta["grid_shape"]
     slab_rows = 8 * gy * gz
     k2 = check_k2(ae_params, slab_rows)
@@ -677,8 +773,9 @@ def main() -> int:
     def want(steps):
         return {f: n * steps for f, n in k1_launches_by_form(ucfg).items()}
 
-    print("main path: the JAX kernel makes 3 more K1 launches per forward, "
-          "as it splits the 192-channel conv")
+    print("main path: K1 makes one launch per triplane conv, 8 per forward; "
+          "the JAX kernel makes 27 (one per plane, and it splits the "
+          "192-channel conv)")
     with configuration("default"):
         _, main_counts, _ = drive_vox("main path", vox, want(n_steps),
                                       want_k2)
@@ -726,33 +823,59 @@ def main() -> int:
 
     chained = ("act+stats", "act+skip+stats")
     k1p_all = {k: sum(k1p[f][k] for f in chained)
-               for k in ("ms", "plain_ms", "library_ms", "flops", "nbytes")}
+               for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                         "library_ms", "library_default_ms",
+                         "library_benchmark_ms", "library_device_ms",
+                         "flops", "nbytes", "default_ms",
+                         "default_device_ms")}
     k1p_all["max_abs_err"] = max(k1p[f]["max_abs_err"] for f in k1p)
     k1p_all["bound_ms"], k1p_all["bound_by"] = bound(
         k1p_all["flops"], k1p_all["nbytes"], PEAK_BF16_FLOPS)
     k1p_launches = {f: opt_in["stats chain"]["k1_forms"].get(f, 0)
                     for f in chained}
     k1p_launches["act"] = opt_in["fused act"]["k1_forms"].get("act", 0)
+    ratios = {"act_over_default": k1p["act"]["ms"] / k1["ms"],
+              "act_over_default_device": (k1p["act"]["device_ms"]
+                                          / k1["device_ms"]),
+              "stats_over_default_same_shapes": (k1p_all["ms"]
+                                                 / k1p_all["default_ms"]),
+              "stats_over_default_same_shapes_device": (
+                  k1p_all["device_ms"] / k1p_all["default_device_ms"])}
+    print("K1' against the default form: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ratios.items()))
+    lib_keys = ("device_ms", "host_ms", "library_default_ms",
+                "library_benchmark_ms", "library_device_ms")
     src = "sin3dm_tpu_torch/csrc/fused_conv.cu"
     kernels = [
         row("conv3x3_rollout", src, "sin3dm_tpu/ops/fused_conv.py:177",
-            main_counts["k1"], k1),
+            main_counts["k1"], k1, **{k: k1[k] for k in lib_keys}),
         row("conv3x3_rollout act/skip/emit_stats (K1')", src,
             "sin3dm_tpu/ops/fused_conv.py:177",
             sum(k1p_launches[f] for f in chained), k1p_all,
+            **{k: k1p_all[k] for k in lib_keys},
             forms={f: {"launches": k1p_launches[f],
                        **{k: k1p[f][k] for k in
-                          ("ms", "plain_ms", "library_ms", "bound_ms",
-                           "bound_by", "max_abs_err")}} for f in k1p},
-            forward_parity_max_abs=parity_err,
+                          ("ms", "device_ms", "host_ms", "plain_ms",
+                           "library_ms", "library_default_ms",
+                           "library_benchmark_ms", "library_device_ms",
+                           "bound_ms", "bound_by", "max_abs_err")}}
+                   for f in k1p},
+            ratios=ratios, forward_parity_max_abs=parity_err,
             inpaint_launches=inpaint_counts["k1_forms"]),
         row("skip_mlp", "sin3dm_tpu_torch/csrc/fused_mlp.cu",
-            "sin3dm_tpu/ops/fused_mlp.py:79", main_counts["k2"], k2),
+            "sin3dm_tpu/ops/fused_mlp.py:79", main_counts["k2"], k2,
+            device_ms=k2["device_ms"],
+            library_device_ms=k2["library_device_ms"]),
     ]
-    print("kernel times: K1 per UNet forward at batch 2 (24 launches), K1' "
-          "per stats-chained forward (9 act+stats + 9 act+skip+stats; its "
-          "'act' form per fused-act forward, 24 launches), K2 per x-slab of "
-          "both heads; launches from each configuration's --vox run")
+    print("kernel times: K1 per UNet forward at batch 2 (8 triplane "
+          "launches), K1' per stats-chained forward (3 act+stats + 3 "
+          "act+skip+stats launches; its 'act' form per fused-act forward, 8 "
+          "launches), K2 per x-slab of both heads; 'ms' by CUDA events over "
+          "back-to-back calls (the wrapper's host time included where it is "
+          "the longer; 'host_ms' that host time alone), 'device_ms' the "
+          "kernels' own time from the profiler, 'library_ms' and "
+          "'library_device_ms' the yardstick's by the same two methods; "
+          "launches from each configuration's --vox run")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -71,12 +71,13 @@ def build_model(args, device: torch.device):
     from ..compat.from_jax import unet_params_from_jax
     from ..diffusion.gaussian import tables_to_device
     from ..models.unet import unet_apply
+    from ..ops import pack_params
 
     ucfg = _unet_config(args)
     model_path = cfgmod.diffusion_model_path(args.tag, args.ema_rate,
                                              args.diff_n_iters)
     tree, _ = ckpt.load_tree(model_path)
-    params = unet_params_from_jax(tree, device)
+    params = pack_params(unet_params_from_jax(tree, device))
 
     respacing = args.timestep_respacing if args.use_ddim else ""
     sched = cfgmod.schedule_from_args(args, respacing=respacing)

@@ -2,14 +2,17 @@
 `sin3dm_tpu/models/unet.py`).
 
 Functional: `unet_apply(params, cfg, x, timesteps)` over a parameter dict
-in JAX's layout (see `compat/from_jax.py`).  Each triplane conv is three
+in JAX's layout (see `compat/from_jax.py`), where each 3x3 conv may also
+hold "k1", its weights packed once for the bf16 kernel
+(`ops.pack_params`).  Each triplane conv is three
 per-plane 2D convs; with rollout every plane's input is concatenated
 with the broadcast axis-means of the other two planes.  That concat is
 never built: by linearity the broadcast channels' 3x3 contribution is a
 3-tap 1D conv of the un-broadcast mean vectors plus border fix-ups
 (`_colvar_vecs` / `_rowvar_vecs`), which the 3x3 kernel K1
 (`ops/fused_conv.py`) adds in its epilogue.  Every 3x3 conv of the UNet
-goes through K1, in bf16 and in fp32 alike.
+goes through K1, in bf16 and in fp32 alike, a triplane conv's three
+planes in one call (`conv3x3_rollout_triplane`: one launch in bf16).
 
 Sampling numerics follow the JAX package's accelerator defaults: a bf16
 torso with `fast_norm` (fp32 GroupNorm statistics, apply in bf16); the
@@ -44,7 +47,7 @@ import torch
 
 from ..core import nn
 from ..core.triplane import Triplane
-from ..ops.fused_conv import conv3x3_rollout, form_name
+from ..ops.fused_conv import conv3x3_rollout_triplane, form_name
 
 PLANES = ("xy", "xz", "yz")
 
@@ -141,27 +144,28 @@ def _tconv_apply_rollout_fast(p: Dict, t: Triplane, act: Dict = None,
     m_xy_h = ta.xy.mean(dim=-3)   # [B, W, C]
     m_xz_h = ta.xz.mean(dim=-3)   # [B, D, C]
 
-    def one(k, x, col_vec, row_vec, col_first: bool):
+    def vecs(k, col_vec, row_vec, col_first: bool):
         w = p[k]["w"]
-        col_slot, row_slot = (1, 2) if col_first else (2, 1)
-        col3 = _colvar_vecs(col_vec, w[:, :, col_slot * C:(col_slot + 1) * C])
-        row3 = _rowvar_vecs(row_vec, w[:, :, row_slot * C:(row_slot + 1) * C])
-        return conv3x3_rollout(x, w[:, :, :C], p[k].get("b"), col3, row3,
-                               act[k] if act is not None else None,
-                               getattr(skip, k) if skip is not None else None,
-                               emit_stats)
+        cs, rs = (C, 2 * C) if col_first else (2 * C, C)
+        return (_colvar_vecs(col_vec, w[:, :, cs:cs + C]),
+                _rowvar_vecs(row_vec, w[:, :, rs:rs + C]))
 
     # block order per plane follows _rollout_cat:
     #   xy: [self, col-varying (m_yz_d), row-varying (m_xz_d)]
     #   xz: [self, row-varying (m_xy_w), col-varying (m_yz_w)]
     #   yz: [self, row-varying (m_xy_h), col-varying (m_xz_h)]
-    outs = (one("xy", t.xy, m_yz_d, m_xz_d, True),
-            one("xz", t.xz, m_yz_w, m_xy_w, False),
-            one("yz", t.yz, m_xz_h, m_xy_h, False))
+    cr = (vecs("xy", m_yz_d, m_xz_d, True), vecs("xz", m_yz_w, m_xy_w, False),
+          vecs("yz", m_xz_h, m_xy_h, False))
+    out = conv3x3_rollout_triplane(
+        list(t), [p[k]["w"][:, :, :C] for k in PLANES],
+        [p[k].get("b") for k in PLANES], [c for c, _ in cr],
+        [r for _, r in cr],
+        [act[k] if act is not None else None for k in PLANES],
+        list(skip) if skip is not None else [None] * 3, emit_stats,
+        packed=[p[k].get("k1") for k in PLANES])
     if emit_stats:
-        return (Triplane(*[o[0] for o in outs]),
-                {k: o[1] for k, o in zip(PLANES, outs)})
-    return Triplane(*outs)
+        return Triplane(*out[0]), dict(zip(PLANES, out[1]))
+    return Triplane(*out)
 
 
 def _tconv_apply(p: Dict, t: Triplane, rollout: bool,
@@ -175,10 +179,11 @@ def _tconv_apply(p: Dict, t: Triplane, rollout: bool,
             act = None
         t = _rollout_cat(t)
     if is3:
-        return Triplane(*[conv3x3_rollout(
-            x, p[k]["w"], p[k].get("b"), None, None,
-            act[k] if act is not None else None)
-            for k, x in zip(PLANES, t)])
+        return Triplane(*conv3x3_rollout_triplane(
+            list(t), [p[k]["w"] for k in PLANES],
+            [p[k].get("b") for k in PLANES], [None] * 3, [None] * 3,
+            [act[k] if act is not None else None for k in PLANES],
+            packed=[p[k].get("k1") for k in PLANES]))
     if act is not None:
         t = _act_triplane(t, act)
     return Triplane(*[nn.conv2d(p[k], x) for k, x in zip(PLANES, t)])
@@ -408,11 +413,13 @@ def _block_widths(cfg: UNetConfig):
 
 
 def k1_launches_by_form(cfg: UNetConfig) -> Dict[str, int]:
-    """K1 launches one forward makes, by form (`ops.fused_conv.form_name`),
-    in the configuration the environment selects now: two 3x3 triplane
-    convs per resblock, three planes each (the 1x1 in/out/skip convs are
-    not K1).  Assumes every level's planes are at least 2 on each side
-    (below that, act applies outside the kernel and no block chains)."""
+    """K1 calls one forward makes (`conv3x3_rollout_triplane`, one kernel
+    launch each in bf16 on the card, three in fp32), by form
+    (`ops.fused_conv.form_name`), in the configuration the environment
+    selects now: two 3x3 triplane convs per resblock (the 1x1
+    in/out/skip convs are not K1).  Assumes every level's planes are at
+    least 2 on each side (below that, act applies outside the kernel and
+    no block chains)."""
     fused_act, chain = _use_fused_act(), _stats_chain_on(cfg)
     counts: Dict[str, int] = {}
 
@@ -421,15 +428,15 @@ def k1_launches_by_form(cfg: UNetConfig) -> Dict[str, int]:
 
     for cin, cout in _block_widths(cfg):
         if chain and cfg.rollout and cin <= 128 and cout <= 128:
-            add(form_name(True, False, True), 3)
-            add(form_name(True, True, True), 3)
+            add(form_name(True, False, True), 1)
+            add(form_name(True, True, True), 1)
         elif fused_act:
-            add(form_name(True, False, False), 6)
+            add(form_name(True, False, False), 2)
         else:
-            add(form_name(False, False, False), 6)
+            add(form_name(False, False, False), 2)
     return counts
 
 
 def k1_launches_per_forward(cfg: UNetConfig) -> int:
-    """How many K1 launches one forward makes, all forms together."""
+    """How many K1 calls one forward makes, all forms together."""
     return sum(k1_launches_by_form(cfg).values())

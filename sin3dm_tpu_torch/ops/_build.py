@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled on first use by `nvcc` for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`) into a shared library with a
 plain C interface, which `ctypes` loads.  Libraries go to
 `build/sin3dm_tpu_torch/` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source builds anew.  Nothing but
+the source, every shared header `csrc/*.cuh` and the flags, so an edited
+source or header builds anew.  Nothing but
 the repository's own sources goes in.  Several sources build in parallel
 through `build`.
 """
@@ -39,11 +40,15 @@ def nvcc() -> str:
                        "where the CUDA toolkit is installed")
 
 
-def target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+def target(name: str, csrc: Path = None) -> Path:
+    """Where the library of `<csrc>/<name>.cu` goes: a hash of that source,
+    of every header in `csrc` (by name and content) and of the flags."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for hdr in sorted(csrc.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, dict]:

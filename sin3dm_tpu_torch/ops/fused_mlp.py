@@ -6,8 +6,12 @@ x `[N, cin]` (fp32): the `first` ReLU linears, `concat[x, h]`, the
 `mxu_dtype` before every product; bias, accumulation and output are fp32.
 
 On a CUDA tensor `skip_mlp` launches the hand-written kernel in
-`csrc/fused_mlp.cu` and raises if it cannot; on a CPU tensor it computes
-the plain version `skip_mlp_reference`.
+`csrc/fused_mlp.cu` (bf16: wgmma with a bulk-copy weight ring, fp32: FMAs)
+and raises if it cannot; on a CPU tensor it computes the plain version
+`skip_mlp_reference`.  The bf16 kernel reads its weights in the layout
+of `pack_mlp_weights`: from the head's "k2" entry where the head was
+packed once (`ops.pack_params`, where the model is built), else packed
+per call.
 """
 
 from __future__ import annotations
@@ -44,11 +48,9 @@ def _layers(params: Dict):
     return list(params["first"]) + list(params["second"])
 
 
-def pack_weights(params: Dict, mxu_dtype):
-    """(weights, biases, (cin, hidden, cout, n_first, n_second)): every
-    layer's [K, N] weight flattened in layer order in `mxu_dtype`, every
-    bias in fp32 — the kernel's operand layout.  Raises on a head the
-    kernel does not take."""
+def _dims(params: Dict):
+    """(cin, hidden, cout, n_first, n_second) of a skip head; raises on a
+    head the kernels do not take."""
     first, second = params["first"], params["second"]
     if not first or not second:
         raise ValueError("skip_mlp: needs at least one first and one "
@@ -69,15 +71,126 @@ def pack_weights(params: Dict, mxu_dtype):
         raise ValueError("skip_mlp: the kernel takes cin and hidden that "
                          "are multiples of 16, and every width <= 256; got "
                          f"cin={cin} hidden={hid} cout={cout}")
+    return cin, hid, cout, n_first, n_second
+
+
+def pack_weights(params: Dict, mxu_dtype):
+    """(weights, biases, dims): every layer's [K, N] weight flattened in
+    layer order in `mxu_dtype`, every bias in fp32 — the fp32 kernel's
+    operand layout; dims as `_dims`."""
+    dims = _dims(params)
     wts = torch.cat([lp["w"].to(mxu_dtype).reshape(-1)
                      for lp in _layers(params)])
     bias = torch.cat([lp["b"].float().reshape(-1) for lp in _layers(params)])
-    return wts, bias, (cin, hid, cout, n_first, n_second)
+    return wts, bias, dims
+
+
+NH = 256   # columns of every layer but a last one of at most 8 (zero-padded)
+KC = 64    # K rows per weight chunk (at most)
+TAB_COLS = 8
+
+
+def _segments(l: int, K: int, cin: int, n_first: int):
+    """(src, k offset into the layer's K, length) runs of layer l: the skip
+    layer reads x (src 0) then h (src 1), layer 0 reads x, the rest h."""
+    if l == n_first:
+        return [(0, 0, cin), (1, cin, K - cin)]
+    return [(0 if l == 0 else 1, 0, K)]
+
+
+def pack_mlp_weights(params: Dict) -> Dict:
+    """The bf16 kernel's operands, a plain torch function (any device):
+
+    - "wts": uint8 bytes of every weight chunk in order.  A chunk is up to
+      64 K rows of one layer and one source, its [K, N] block transposed
+      and zero-padded to npad columns (256, or 8 for a last layer of at
+      most 8), stored as [npad/8][kc/8][8][8] bf16 core matrices: element
+      (k, n) at ((n//8)(kc//8) + k//8) 64 + (n%8) 8 + k%8 — the K-major
+      no-swizzle layout of a wgmma B operand, so one bulk copy moves it;
+    - "bias": fp32 [layers, 256], zero-padded;
+    - "table": int32 [chunks, 8] rows (layer, src, k0, kc, byte offset/16,
+      npad, flags, 0), flags 1 first chunk of its layer, 2 last, 4 last
+      layer, 8 last chunk of the skip layer (see csrc/fused_mlp.cu);
+    - "dims": (cin, hidden, cout, n_first, n_second)."""
+    cin, hid, cout, n_first, n_second = dims = _dims(params)
+    layers = _layers(params)
+    chunks, rows, off = [], [], 0
+    for l, lp in enumerate(layers):
+        w = lp["w"].to(torch.bfloat16)
+        K, N = w.shape
+        last = l == len(layers) - 1
+        npad = 8 if last and N <= 8 else NH
+        runs = [(src, k0 + k, min(KC, n - k))
+                for src, k0, n in _segments(l, K, cin, n_first)
+                for k in range(0, n, KC)]
+        for i, (src, k, kc) in enumerate(runs):
+            blk = w.new_zeros((npad, kc))
+            blk[:N] = w[k:k + kc].t()
+            blk = blk.reshape(npad // 8, 8, kc // 8, 8).permute(0, 2, 1, 3)
+            chunks.append(blk.reshape(-1))
+            k_src = k if src == 0 else k - (cin if l == n_first else 0)
+            flags = (1 if i == 0 else 0) | (2 if i == len(runs) - 1 else 0) \
+                | (4 if last else 0) \
+                | (8 if l == n_first and i == len(runs) - 1 else 0)
+            rows.append([l, src, k_src, kc, off // 16, npad, flags, 0])
+            off += npad * kc * 2
+    bias = torch.zeros((len(layers), NH), dtype=torch.float32,
+                       device=layers[0]["w"].device)
+    for l, lp in enumerate(layers):
+        bias[l, :lp["b"].numel()] = lp["b"].float().reshape(-1)
+    return {"wts": torch.cat(chunks).view(torch.uint8), "bias": bias,
+            "table": torch.tensor(rows, dtype=torch.int32,
+                                  device=bias.device),
+            "dims": dims}
+
+
+def _launch_bf16(params: Dict, x: torch.Tensor, out: torch.Tensor) -> None:
+    pk = params.get("k2") or pack_mlp_weights(params)
+    cin, _, cout, _, _ = pk["dims"]
+    if pk["wts"].device != x.device:
+        raise ValueError("skip_mlp: params and x must be on one device")
+    if x.data_ptr() % 16:
+        raise ValueError("skip_mlp: x must be 16-byte aligned")
+    lib = _build.load("fused_mlp")
+    fn = lib.sin3dm_skip_mlp_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.c_void_p(x.data_ptr()),
+             ctypes.c_void_p(pk["wts"].data_ptr()),
+             ctypes.c_void_p(pk["bias"].data_ptr()),
+             ctypes.c_void_p(pk["table"].data_ptr()), pk["table"].shape[0],
+             pk["bias"].shape[0], ctypes.c_void_p(out.data_ptr()),
+             x.shape[0], cin, cout,
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
+
+
+def _launch_f32(params: Dict, x: torch.Tensor, out: torch.Tensor) -> None:
+    wts, bias, (cin, hid, cout, n_first, n_second) = pack_weights(
+        params, torch.float32)
+    if wts.device != x.device or bias.device != x.device:
+        raise ValueError("skip_mlp: params and x must be on one device")
+    lib = _build.load("fused_mlp")
+    fn = lib.sin3dm_skip_mlp_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wts.data_ptr()),
+             ctypes.c_void_p(bias.data_ptr()),
+             ctypes.c_void_p(out.data_ptr()), x.shape[0], cin, hid, cout,
+             n_first, n_second,
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
 
 
 def skip_mlp(params: Dict, x: torch.Tensor,
              mxu_dtype=torch.float32) -> torch.Tensor:
-    """K2.  x `[N, cin]` fp32 -> `[N, cout]` fp32."""
+    """K2.  x `[N, cin]` fp32 -> `[N, cout]` fp32.  `params` is a skip
+    head ("first", "second" lists of {"w" [K, N], "b" [N]}), with "k2",
+    its `pack_mlp_weights`, where it was packed once."""
     if x.device.type == "cpu":
         return skip_mlp_reference(params, x, mxu_dtype)
     if x.device.type != "cuda":
@@ -85,29 +198,18 @@ def skip_mlp(params: Dict, x: torch.Tensor,
     if mxu_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"skip_mlp: mxu_dtype must be fp32 or bf16, got "
                          f"{mxu_dtype}")
-    wts, bias, (cin, hid, cout, n_first, n_second) = pack_weights(
-        params, mxu_dtype)
+    cin, _, cout, _, _ = _dims(params)
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != cin \
             or not x.is_contiguous() or x.shape[0] == 0:
         raise ValueError(f"skip_mlp: x must be a contiguous non-empty fp32 "
                          f"[N, {cin}] tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if wts.device != x.device or bias.device != x.device:
-        raise ValueError("skip_mlp: params and x must be on one device")
-    N = x.shape[0]
-    out = torch.empty((N, cout), dtype=torch.float32, device=x.device)
-    lib = _build.load("fused_mlp")
-    fn = lib.sin3dm_skip_mlp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wts.data_ptr()),
-             ctypes.c_void_p(bias.data_ptr()),
-             ctypes.c_void_p(out.data_ptr()), N, cin, hid, cout, n_first,
-             n_second, int(mxu_dtype == torch.bfloat16),
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
+    out = torch.empty((x.shape[0], cout), dtype=torch.float32,
+                      device=x.device)
+    if mxu_dtype == torch.bfloat16:
+        _launch_bf16(params, x, out)
+    else:
+        _launch_f32(params, x, out)
     skip_mlp.launches += 1
     return out
 

@@ -18,6 +18,7 @@ from ..core import checkpoint as ckpt
 from ..core.triplane import Triplane
 from ..dataio.grid import grid_resolutions
 from ..models import autoencoder as ae
+from ..ops import pack_params
 
 
 def _with_batch(feat: Triplane) -> Triplane:
@@ -43,7 +44,7 @@ class AETrainer:
         prefix = ("params" if any(p.startswith("params/")
                                   for p in ckpt.peek_paths(path)) else "")
         tree, meta = ckpt.load_tree(path, prefix)
-        self.params = ae_params_from_jax(tree, self.device)
+        self.params = pack_params(ae_params_from_jax(tree, self.device))
         self.meta = meta or {}
 
     def decode_grid(self, feat: Triplane, reso: int,

@@ -2,7 +2,10 @@
 K1′ and K2 against their plain versions at edge shapes the main path does
 not reach (sizes of 1 and 2, channel counts off the 16-byte vector width,
 ragged row and channel tiles, stats blocks that end mid-row of a batch
-item), the launch counters, and the wrappers' refusals.
+item), the bf16 kernels' own tile edges (pixel tiles cut by the plane's
+edge, planes narrower or shorter than a tile, 64- and 128-column blocks,
+K2's 128-row tiles and narrow last layers), the triplane launch against three
+single-plane launches, the launch counters, and the wrappers' refusals.
 
 Every test needs an NVIDIA card and skips without one.  The file imports
 no JAX, so on the card it runs without the suite's conftest:
@@ -234,3 +237,207 @@ def test_cuda_tensor_without_library_raises(card, kernel, monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         fn(*args)
     assert fn.launches == before
+
+
+def _triplane_case(g, card, B, sizes, C, Co, form, dt=torch.bfloat16):
+    """Operands of one triplane conv in `form`, per plane."""
+    xs, ws, bs, cols, rows, acts, skips = [], [], [], [], [], [], []
+    for H, W in sizes:
+        xs.append(_randn(g, B, H, W, C).to(card, dt))
+        ws.append(_randn(g, 3, 3, C, Co, scale=(9 * C) ** -0.5).to(card))
+        bs.append(_randn(g, Co, scale=0.1).to(card))
+        cols.append(_randn(g, B, W, 3, Co, scale=0.3).to(card, dt))
+        rows.append(_randn(g, B, H, 3, Co, scale=0.3).to(card, dt))
+        acts.append(((1.0 + _randn(g, B, C, scale=0.3)).to(card),
+                     _randn(g, B, C, scale=0.5).to(card))
+                    if "act" in form else None)
+        skips.append(_randn(g, B, H, W, Co).to(card, dt)
+                     if "skip" in form else None)
+    return xs, ws, bs, cols, rows, acts, skips
+
+
+@pytest.mark.parametrize("form", ["default", "act", "act+stats",
+                                  "act+skip+stats"])
+@pytest.mark.parametrize("B,sizes,C,Co", [
+    (1, ((5, 37), (5, 11), (37, 11)), 64, 64),    # tiles cut by both edges
+    (3, ((2, 9), (2, 2), (9, 2)), 64, 64),        # H = 2, batch 3
+    (2, ((7, 30), (7, 7), (30, 7)), 192, 64),     # C = 192 -> 64
+    (1, ((9, 20), (9, 13), (20, 13)), 128, 128),  # Co = 128: 8 x 8 tiles
+    (2, ((3, 70), (3, 5), (70, 5)), 64, 96),      # Co padded to 128
+])
+def test_k1_bf16_tiles_and_triplane(card, B, sizes, C, Co, form):
+    """The bf16 kernel at its tile edges, each plane against the plain
+    version; one triplane launch equals the three single-plane launches
+    bit for bit (y and stats)."""
+    g = torch.Generator().manual_seed(B * 100 + C + Co + len(form))
+    xs, ws, bs, cols, rows, acts, skips = _triplane_case(g, card, B, sizes,
+                                                         C, Co, form)
+    stats = "stats" in form
+    before = dict(tfc.conv3x3_rollout.form_launches)
+    tri = tfc.conv3x3_rollout_triplane(xs, ws, bs, cols, rows, acts, skips,
+                                       stats)
+    assert tfc.conv3x3_rollout.form_launches[form] == before.get(form, 0) + 1
+    tri_y, tri_s = tri if stats else (tri, [None] * 3)
+    for i in range(3):
+        args = (xs[i], ws[i], bs[i], cols[i], rows[i], acts[i], skips[i],
+                stats)
+        one = tfc.conv3x3_rollout(*args)
+        ref = tfc.conv3x3_rollout_reference(*args)
+        torch.cuda.synchronize()
+        (one_y, one_s), (ref_y, ref_s) = (one, ref) if stats else \
+            ((one, None), (ref, None))
+        assert torch.equal(tri_y[i], one_y)
+        tol = _y_tol(ref_y.float(), torch.bfloat16)
+        assert ((one_y.float() - ref_y.float()).abs() <= tol).all()
+        if stats:
+            assert torch.equal(tri_s[i], one_s)
+            _check_stats(one_y.float(), one_s, ref_y.float(), ref_s, tol)
+
+
+def test_k1_triplane_stats_are_the_same_every_run(card):
+    """The stats partials are summed in tile order by the last block of
+    each item: two launches give the same bits."""
+    g = torch.Generator().manual_seed(11)
+    case = _triplane_case(g, card, 2, ((46, 64), (46, 46), (64, 46)), 128,
+                          128, "act+skip+stats")
+    y1, s1 = tfc.conv3x3_rollout_triplane(*case, emit_stats=True)
+    y2, s2 = tfc.conv3x3_rollout_triplane(*case, emit_stats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(y1, y2))
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
+def test_k1_stats_launches_on_two_streams(card):
+    """Each stats launch counts its finished tiles in counters of its
+    own: launches that overlap on two streams give the bits of one
+    launch alone."""
+    g = torch.Generator().manual_seed(15)
+    cases = [_triplane_case(g, card, 2, ((46, 64), (46, 46), (64, 46)), 64,
+                            128, "act+stats") for _ in range(2)]
+    want = [tfc.conv3x3_rollout_triplane(*c, emit_stats=True) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    got = [[], []]
+    for _ in range(20):
+        for i, (c, st) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(tfc.conv3x3_rollout_triplane(*c,
+                                                           emit_stats=True))
+    torch.cuda.synchronize()
+    for (wy, ws), runs in zip(want, got):
+        for y, s in runs:
+            assert all(torch.equal(a, b) for a, b in zip(y, wy))
+            assert all(torch.equal(a, b) for a, b in zip(s, ws))
+
+
+def test_k1_triplane_fp32_is_three_launches(card):
+    """fp32 keeps the single-plane SIMT kernel: three launches."""
+    g = torch.Generator().manual_seed(12)
+    case = _triplane_case(g, card, 1, ((4, 5), (4, 3), (5, 3)), 16, 16,
+                          "default", dt=torch.float32)
+    before = tfc.conv3x3_rollout.launches
+    ys = tfc.conv3x3_rollout_triplane(*case)
+    assert tfc.conv3x3_rollout.launches == before + 3
+    for i, y in enumerate(ys):
+        ref = tfc.conv3x3_rollout_reference(*[a[i] for a in case])
+        assert torch.allclose(y, ref, atol=F32_TOL * ref.abs().max().item())
+
+
+def test_k1_bf16_takes_planes_of_any_width(card):
+    """A tile stages a fixed (8 + 2) x (TW + 2) pixels, whatever the
+    plane's width: a 3 x 4000 plane runs and agrees with the plain
+    version."""
+    g = torch.Generator().manual_seed(14)
+    x = _randn(g, 1, 3, 4000, 64).to(card, torch.bfloat16)
+    w = _randn(g, 3, 3, 64, 64, scale=(9 * 64) ** -0.5).to(card)
+    y = tfc.conv3x3_rollout(x, w)
+    ref = tfc.conv3x3_rollout_reference(x, w)
+    torch.cuda.synchronize()
+    tol = _y_tol(ref.float(), torch.bfloat16)
+    assert ((y.float() - ref.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_k1_takes_the_whole_rollout_conv_packed(card, C):
+    """The UNet passes a rollout conv's [3, 3, 3C, Co] weight packed
+    whole beside its first C input channels: the same bits as that slice
+    packed on the call (C = 32: half of the one chunk read is the next
+    block's weights, met by staged zeros).  A pack of other widths is
+    refused."""
+    g = torch.Generator().manual_seed(13 + C)
+    x = _randn(g, 2, 6, 7, C).to(card, torch.bfloat16)
+    wfull = _randn(g, 3, 3, 3 * C, 48, scale=0.1).to(card)
+    w = wfull[:, :, :C]
+    act = ((1.0 + _randn(g, 2, C, scale=0.3)).to(card),
+           _randn(g, 2, C, scale=0.5).to(card))
+    whole = tfc.pack_conv_weights(wfull)
+    for a in (None, act):
+        y1, s1 = tfc.conv3x3_rollout(x, w, act=a, emit_stats=True)
+        y2, s2 = tfc.conv3x3_rollout(x, w, act=a, emit_stats=True,
+                                     packed=whole)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    with pytest.raises(ValueError, match="packed"):
+        tfc.conv3x3_rollout(x, w, packed=tfc.pack_conv_weights(
+            _randn(g, 3, 3, C, 96).to(card)))
+
+
+def test_k2_takes_its_head_packed_once(card):
+    """A head packed by `pack_params` launches on its "k2" entry and
+    gives the bits of the head packed on the call."""
+    from sin3dm_tpu_torch.ops import pack_params
+    g = torch.Generator().manual_seed(16)
+    head = _skip_head(g, 64, 3, 256, 4)
+    head = {k: [{n: t.to(card) for n, t in lp.items()} for lp in v]
+            for k, v in head.items()}
+    x = _randn(g, 300, 64, scale=0.5).to(card)
+    packed = pack_params(head)
+    assert "k2" in packed
+    assert torch.equal(tfm.skip_mlp(packed, x, mxu_dtype=torch.bfloat16),
+                       tfm.skip_mlp(head, x, mxu_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("n", [1, 77, 128, 129, 64 * 3 + 5, 4096 + 17])
+@pytest.mark.parametrize("cout", [1, 3, 8])
+def test_k2_bf16_tiles(card, n, cout):
+    """K2's 128-row tiles (N below one tile, not a multiple of it, more
+    tiles than SMs would take in one pass at larger N) and its narrow last
+    layer (m64n8) at cout 1, 3 and 8."""
+    g = torch.Generator().manual_seed(n + cout)
+    params = _skip_head(g, 64, cout, 256, 4)
+    params = {k: [{n_: t.to(card) for n_, t in lp.items()} for lp in v]
+              for k, v in params.items()}
+    x = _randn(g, n, 64, scale=0.5).to(card)
+    got = tfm.skip_mlp(params, x, mxu_dtype=torch.bfloat16)
+    ref = tfm.skip_mlp_reference(params, x, mxu_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (n, cout)
+    assert (got - ref).abs().max().item() <= 2.0 ** -8 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("C", [64, 192])
+def test_k1_bf16_act_is_exact(card, C):
+    """The bf16 kernel activates each staged value once with a fast
+    sigmoid, and recomputes the exact one wherever the fast value lies
+    near a bf16 rounding midpoint or outside its range.  With the
+    identity at the centre tap and no bias, y is the activated input
+    itself: it equals, bit for bit, torch's silu in fp32 (each operation
+    rounded) rounded to bf16.  Per-channel coefficients from 0.03 to 30
+    spread v = x*A + B past |v| = 30, and 4 channels hold v = 0.  C = 64
+    takes 8 x 16 tiles, C = 192 (Co = 192) three chunks and 8 x 8."""
+    g = torch.Generator().manual_seed(C)
+    B, sizes = 2, ((33, 47), (33, 20), (47, 20))
+    xs = [_randn(g, B, H, W, C).to(card, torch.bfloat16) for H, W in sizes]
+    w = torch.zeros(3, 3, C, C, device=card)
+    w[1, 1] = torch.eye(C, device=card)
+    scale = torch.logspace(-1.5, 1.5, C)
+    a = (_randn(g, B, C) * scale).to(card)
+    b = (_randn(g, B, C) * scale).to(card)
+    a[:, :4], b[:, :4] = 0.0, 0.0
+    ys = tfc.conv3x3_rollout_triplane(xs, [w] * 3, [None] * 3, [None] * 3,
+                                      [None] * 3, [(a, b)] * 3)
+    torch.cuda.synchronize()
+    for x, y in zip(xs, ys):
+        v = x.float() * a[:, None, None, :] + b[:, None, None, :]
+        want = (v * torch.sigmoid(v)).to(torch.bfloat16)
+        assert torch.equal(y, want)

@@ -16,6 +16,7 @@ from sin3dm_tpu.core import nn as jnn
 from sin3dm_tpu.ops.fused_conv import conv3x3_rollout_fused
 from sin3dm_tpu_torch.core import nn as tnn
 from sin3dm_tpu_torch.ops import fused_conv as tfc
+from sin3dm_tpu_torch.ops import pack_params
 
 torch.set_num_threads(2)
 F32_TOL = dict(rtol=2e-5, atol=2e-5)   # summation order only
@@ -211,3 +212,121 @@ def test_coeffs_from_sums_clamp_a_negative_variance():
         torch.from_numpy(stats), n)
     assert np.isfinite(ga.numpy()).all()
     np.testing.assert_allclose(ga.numpy(), np.asarray(wa), rtol=1e-4)
+
+
+def _unpack_conv(wp, C, Co):
+    """[3, 3, C, Co] back from the bf16 kernel's packed weights."""
+    n_cc, nine, co_pad, kch = wp.shape
+    assert nine == 9 and kch == tfc.KCH and n_cc == -(-C // kch)
+    assert co_pad % tfc.block_n(Co) == 0 and co_pad - Co < tfc.block_n(Co)
+    full = wp.permute(1, 2, 0, 3).reshape(9, co_pad, n_cc * kch)
+    assert not full[:, Co:].any() and not full[:, :, C:].any()   # padding
+    return full[:, :Co, :C].transpose(1, 2).reshape(3, 3, C, Co)
+
+
+@pytest.mark.parametrize("C,Co", [(64, 64), (192, 64), (64, 128),
+                                  (128, 128),          # towerruins widths
+                                  (12, 20), (33, 70), (8, 8), (65, 129)])
+def test_pack_conv_weights_unpacks_exactly(C, Co):
+    rng = np.random.default_rng(C * 1000 + Co)
+    w = torch.from_numpy(rng.standard_normal((3, 3, C, Co)).astype(
+        np.float32))
+    wp = tfc.pack_conv_weights(w)
+    assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    assert torch.equal(_unpack_conv(wp, C, Co), w.bfloat16())
+    # a view packs like the tensor it shows (the UNet packs w[:, :, :C])
+    wide = torch.cat([w, w], dim=2)
+    assert torch.equal(tfc.pack_conv_weights(wide[:, :, :C]), wp)
+
+
+@pytest.mark.parametrize("C,Co", [(64, 64), (128, 128), (32, 32),
+                                  (12, 20)])
+def test_whole_conv_pack_holds_its_rollout_slice(C, Co):
+    """A rollout conv's weight [3, 3, 3C, Co] is packed whole; K1 reads
+    its first ceil(C/64) chunks, where the first C input channels lie as
+    in the pack of the slice, and the rest of a partial chunk meets the
+    zeros the kernel stages past C."""
+    rng = np.random.default_rng(C + Co)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3 * C, Co)).astype(
+        np.float32))
+    whole = tfc.pack_conv_weights(w)
+    own = tfc.pack_conv_weights(w[:, :, :C])
+    n_cc = own.shape[0]
+    assert whole.shape[1:] == own.shape[1:] and whole.shape[0] >= n_cc
+    head = whole[:n_cc].clone()
+    rest = n_cc * tfc.KCH - C        # channels C.. of the last chunk
+    if rest:
+        head[-1, :, :, tfc.KCH - rest:] = 0
+    assert torch.equal(head, own)
+
+
+def test_pack_params_packs_each_3x3_conv_once():
+    g = torch.Generator().manual_seed(3)
+    conv = lambda *s: {"w": torch.randn(*s, generator=g),
+                       "b": torch.randn(s[-1], generator=g)}
+    tree = {"in_conv": {"xy": conv(1, 1, 12, 64)},
+            "down": [[{"in_conv": {k: conv(3, 3, 192, 64)
+                                   for k in ("xy", "xz", "yz")}}]]}
+    packed = pack_params(tree)
+    assert "k1" not in packed["in_conv"]["xy"]            # 1x1: not K1
+    for k, p in packed["down"][0][0]["in_conv"].items():
+        src = tree["down"][0][0]["in_conv"][k]
+        assert p["w"] is src["w"] and p["b"] is src["b"]
+        assert torch.equal(p["k1"], tfc.pack_conv_weights(src["w"]))
+        assert "k1" not in src                            # tree unchanged
+
+
+@pytest.mark.parametrize("form", ["default", "act", "act+stats",
+                                  "act+skip+stats"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_triplane_matches_three_pallas_calls(form, dt):
+    """`conv3x3_rollout_triplane` (on the CPU: the plain version per
+    plane) equals three JAX `conv3x3_rollout_fused` calls, one per plane
+    with its own sizes and weights, at the tolerances above."""
+    act, skip, stats = "act" in form, "skip" in form, "stats" in form
+    cases = [_case(10 + i, 2, H, W, 64, 64, act=act, skip=skip)
+             for i, (H, W) in enumerate(((7, 12), (7, 9), (12, 9)))]
+    tdt = getattr(torch, dt)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    stack = lambda vs: torch.from_numpy(np.stack(vs, axis=2)).to(tdt)
+    out = tfc.conv3x3_rollout_triplane(
+        [t(c["x"]).to(tdt) for c in cases], [t(c["w"]) for c in cases],
+        [t(c["b"]) for c in cases], [stack(c["col"]) for c in cases],
+        [stack(c["row"]) for c in cases],
+        [tuple(map(t, c["act"])) if act else None for c in cases],
+        [t(c["skip"]).to(tdt) if skip else None for c in cases], stats)
+    ys, ss = out if stats else (out, [None] * 3)
+    for c, y, s in zip(cases, ys, ss):
+        assert y.dtype == tdt
+        got_y = y.float().numpy()
+        want_y, want_s = _jax(c, getattr(jnp, dt), emit_stats=stats)
+        if dt == "float32":
+            np.testing.assert_allclose(got_y, want_y, **F32_TOL)
+        elif act:
+            # the two frameworks' sigmoids may differ by an fp32 ulp, which
+            # can put an activated input on the other side of a bf16
+            # rounding boundary: that moves an output by one bf16 step of
+            # one input times its weight, far below 1% of a step of the
+            # output scale (seen: 1.4e-5 of the scale, at outputs near 0)
+            err = np.abs(got_y - want_y)
+            scale = np.abs(want_y).max()
+            assert (err <= 2 * BF16_EPS * np.abs(want_y)
+                    + 0.01 * BF16_EPS * scale).all()
+        else:
+            _check_bf16(got_y, want_y, 64)
+        if stats:
+            _check_stats(s.numpy(), want_s, got_y, want_y)
+
+
+def test_triplane_refuses_mixed_forms():
+    x = torch.zeros(1, 3, 3, 8)
+    w = torch.zeros(3, 3, 8, 8)
+    act = (torch.ones(1, 8), torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="every plane or for none"):
+        tfc.conv3x3_rollout_triplane([x] * 3, [w] * 3, [None] * 3,
+                                     [None] * 3, [None] * 3,
+                                     [act, None, act], [None] * 3)
+    with pytest.raises(ValueError, match="1 to 3 planes"):
+        tfc.conv3x3_rollout_triplane([x] * 4, [w] * 4, [None] * 4,
+                                     [None] * 4, [None] * 4, [None] * 4,
+                                     [None] * 4)

@@ -15,6 +15,7 @@ import torch
 from sin3dm_tpu.models.autoencoder import _mlp_skip_init
 from sin3dm_tpu.ops.fused_mlp import skip_mlp_fused
 from sin3dm_tpu_torch.ops import fused_mlp as tfm
+from sin3dm_tpu_torch.ops import pack_params
 
 torch.set_num_threads(2)
 
@@ -64,3 +65,82 @@ def test_pack_weights_layout_and_checks():
     _, bad = _head(3, 24, 3, 64, 2)   # cin not a multiple of 16
     with pytest.raises(ValueError, match="multiples of 16"):
         tfm.pack_weights(bad, torch.float32)
+
+
+def _unpack_mlp(pk, params):
+    """Each layer's [K, N] weight and [N] bias back from the bf16 kernel's
+    packed chunks (`pack_mlp_weights`), following the table alone."""
+    cin = pk["dims"][0]
+    n_first = pk["dims"][3]
+    wbytes = pk["wts"]
+    layers = tfm._layers(params)
+    got = [torch.zeros(lp["w"].shape, dtype=torch.bfloat16) for lp in layers]
+    seen = [torch.zeros(lp["w"].shape[0], dtype=torch.int64) for lp in layers]
+    for l, src, k0, kc, off16, npad, flags, _ in pk["table"].tolist():
+        blk = wbytes[off16 * 16: off16 * 16 + npad * kc * 2].view(
+            torch.bfloat16).reshape(npad // 8, kc // 8, 8, 8)
+        blk = blk.permute(0, 2, 1, 3).reshape(npad, kc)      # [n, k]
+        N = layers[l]["w"].shape[1]
+        assert not blk[N:].any()                               # zero padding
+        k = k0 + (cin if src == 1 and l == n_first else 0)
+        got[l][k:k + kc] = blk[:N].t()
+        seen[l][k:k + kc] += 1
+    bias = [pk["bias"][l, :lp["b"].numel()] for l, lp in enumerate(layers)]
+    for l, lp in enumerate(layers):
+        assert (seen[l] == 1).all()                            # each row once
+        assert not pk["bias"][l, lp["b"].numel():].any()
+    return got, bias
+
+
+@pytest.mark.parametrize("cin,cout,hidden,n_hidden", [
+    (64, 1, 256, 4),      # the towerruins geometry head
+    (64, 3, 256, 4),      # the towerruins texture head
+    (32, 4, 64, 2),
+    (16, 3, 48, 0),       # widths off the 64-row chunk grid
+    (64, 8, 256, 2),      # the widest last layer that takes m64n8
+    (32, 12, 64, 2),      # a last layer wider than 8: padded to 256
+])
+def test_pack_mlp_weights_unpacks_exactly(cin, cout, hidden, n_hidden):
+    """The bf16 kernel's layout holds every weight exactly once, rounded
+    to bf16, and the table walks each layer's K in order: x before h in
+    the skip layer, first/last flags on each layer's chunk run."""
+    _, tp = _head(4, cin, cout, hidden, n_hidden)
+    pk = tfm.pack_mlp_weights(tp)
+    assert pk["dims"] == tfm._dims(tp)
+    assert pk["wts"].dtype == torch.uint8 and pk["table"].dtype == torch.int32
+    got, bias = _unpack_mlp(pk, tp)
+    for g, b, lp in zip(got, bias, tfm._layers(tp)):
+        assert torch.equal(g, lp["w"].bfloat16())
+        assert torch.equal(b, lp["b"].float())
+    tab = pk["table"].tolist()
+    n_layers = len(tfm._layers(tp))
+    assert [r[0] for r in tab] == sorted(r[0] for r in tab)
+    for l in range(n_layers):
+        rows = [r for r in tab if r[0] == l]
+        assert rows[0][6] & 1 and rows[-1][6] & 2
+        assert all(r[3] % 16 == 0 and 0 < r[3] <= 64 for r in rows)
+        assert all(bool(r[6] & 4) == (l == n_layers - 1) for r in rows)
+        if l == pk["dims"][3]:                       # the skip layer
+            assert [r[1] for r in rows] == sorted(r[1] for r in rows)
+    last = [r for r in tab if r[0] == n_layers - 1]
+    assert all(r[5] == (8 if cout <= 8 else 256) for r in last)
+
+
+def test_pack_params_packs_each_skip_head_once():
+    """`pack_params` puts each head's `pack_mlp_weights` beside it as
+    "k2" (a head K2 does not take stays unpacked, for skip_mlp to refuse)
+    and leaves the tree it was given as it was."""
+    _, geo = _head(5, 64, 1, 256, 4)
+    _, odd = _head(6, 24, 3, 64, 2)      # cin not a multiple of 16
+    tree = {"geo_decoder": geo, "odd_decoder": odd}
+    packed = pack_params(tree)
+    want = tfm.pack_mlp_weights(geo)
+    got = packed["geo_decoder"]["k2"]
+    assert got["dims"] == want["dims"]
+    for k in ("wts", "bias", "table"):
+        assert torch.equal(got[k], want[k])
+    assert "k2" not in packed["odd_decoder"] and "k2" not in geo
+    assert packed["geo_decoder"]["first"][0]["w"] is geo["first"][0]["w"]
+    x = torch.randn(50, 64)
+    assert torch.equal(tfm.skip_mlp(packed["geo_decoder"], x, torch.bfloat16),
+                       tfm.skip_mlp(geo, x, torch.bfloat16))

@@ -19,7 +19,7 @@ from sin3dm_tpu_torch.compat.from_jax import unet_params_from_jax
 from sin3dm_tpu_torch.core import checkpoint as tckpt
 from sin3dm_tpu_torch.core.triplane import Triplane as TT
 from sin3dm_tpu_torch.models import unet as TU
-from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
+from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout_triplane
 
 torch.set_num_threads(2)
 EMA = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
@@ -75,19 +75,22 @@ def test_committed_ema_fp32(sizes):
 
 
 def test_k1_launch_count_per_forward(monkeypatch):
-    """Every 3x3 conv of a forward goes through K1's wrapper, once per
-    plane; the 192-channel conv is one call (the JAX kernel splits it)."""
+    """Every 3x3 conv of a forward goes through K1's triplane wrapper,
+    once per triplane conv (one kernel launch in bf16 on the card): 8 per
+    forward; the 192-channel conv is one call (the JAX kernel splits it
+    and launches once per plane)."""
     cfg = TU.UNetConfig()
     params, _ = tckpt.load_tree(EMA)
     calls = []
 
-    def counting(x, w, *rest):
-        calls.append(tuple(w.shape))
-        return conv3x3_rollout(x, w, *rest)
+    def counting(xs, ws, *rest, **kw):
+        assert len(xs) == len(ws) == 3
+        calls.append(tuple(ws[0].shape))
+        return conv3x3_rollout_triplane(xs, ws, *rest, **kw)
 
-    monkeypatch.setattr(TU, "conv3x3_rollout", counting)
+    monkeypatch.setattr(TU, "conv3x3_rollout_triplane", counting)
     planes, t = _inputs(3, 1, 12, (8, 8, 6))
     TU.unet_apply(unet_params_from_jax(params), cfg,
                   TT(*map(torch.from_numpy, planes)), torch.from_numpy(t))
-    assert len(calls) == TU.k1_launches_per_forward(cfg) == 24
-    assert sum(s[2] == 192 for s in calls) == 3
+    assert len(calls) == TU.k1_launches_per_forward(cfg) == 8
+    assert sum(s[2] == 192 for s in calls) == 1

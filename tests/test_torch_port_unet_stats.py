@@ -25,7 +25,8 @@ from sin3dm_tpu_torch.compat.from_jax import unet_params_from_jax
 from sin3dm_tpu_torch.core import checkpoint as tckpt
 from sin3dm_tpu_torch.core.triplane import Triplane as TT
 from sin3dm_tpu_torch.models import unet as TU
-from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout, form_name
+from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout_triplane,
+                                             form_name)
 
 torch.set_num_threads(2)
 EMA = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
@@ -154,29 +155,31 @@ def test_port_chains_the_blocks_jax_chains(monkeypatch):
 
 @pytest.mark.parametrize("switch", (None,) + SWITCHES)
 def test_k1_forms_per_forward(monkeypatch, switch):
-    """Every 3x3 conv goes through K1's wrapper in the form
-    `k1_launches_by_form` says: at towerruins widths 24 default launches,
-    or 9 act+stats + 9 act+skip+stats + 6 default under the stats chain,
-    or 24 act under the fused act."""
+    """Every 3x3 conv goes through K1's triplane wrapper (one launch per
+    triplane conv in bf16 on the card) in the form `k1_launches_by_form`
+    says: at towerruins widths 8 default launches, or 3 act+stats + 3
+    act+skip+stats + 2 default under the stats chain, or 8 act under the
+    fused act."""
     params, _ = tckpt.load_tree(EMA)
     planes, t = _inputs((8, 12, 6))
     _set(monkeypatch, switch)
     forms = {}
 
-    def counting(x, w, b=None, col3=None, row3=None, act=None, skip=None,
-                 emit_stats=False):
-        f = form_name(act is not None, skip is not None, emit_stats)
+    def counting(xs, ws, bs, col3s, row3s, acts=(None,) * 3,
+                 skips=(None,) * 3, emit_stats=False, packed=None):
+        f = form_name(acts[0] is not None, skips[0] is not None, emit_stats)
         forms[f] = forms.get(f, 0) + 1
-        return conv3x3_rollout(x, w, b, col3, row3, act, skip, emit_stats)
+        return conv3x3_rollout_triplane(xs, ws, bs, col3s, row3s, acts,
+                                        skips, emit_stats, packed)
 
-    monkeypatch.setattr(TU, "conv3x3_rollout", counting)
+    monkeypatch.setattr(TU, "conv3x3_rollout_triplane", counting)
     tcfg = TU.UNetConfig(compute_dtype=torch.bfloat16, fast_norm=True)
     _port(params, tcfg, planes, t)
     assert forms == TU.k1_launches_by_form(tcfg)
-    assert sum(forms.values()) == TU.k1_launches_per_forward(tcfg) == 24
-    want = {None: {"default": 24}, "SIN3DM_FUSED_ACT": {"act": 24},
-            "SIN3DM_STATS_CHAIN": {"act+stats": 9, "act+skip+stats": 9,
-                                   "default": 6}}[switch]
+    assert sum(forms.values()) == TU.k1_launches_per_forward(tcfg) == 8
+    want = {None: {"default": 8}, "SIN3DM_FUSED_ACT": {"act": 8},
+            "SIN3DM_STATS_CHAIN": {"act+stats": 3, "act+skip+stats": 3,
+                                   "default": 2}}[switch]
     assert forms == want
 
 
