@@ -8,7 +8,7 @@ of this repository.  Phases, each printing its results:
 
 1. device: name, power limit, torch/CUDA versions; TF32 off;
 2. build: both kernels with nvcc from `sin3dm_tpu_torch/csrc/`, in
-   parallel;
+   parallel, and beside them the host geometry library with g++;
 3. kernels against their plain versions on the card at the main path's
    shapes, in bf16 and fp32, with error, tolerance and median times of
    kernel, plain version and a library yardstick (cuDNN conv + epilogue
@@ -30,6 +30,21 @@ of this repository.  Phases, each printing its results:
    default configuration;
 4d. `--inpaint` under the stats chain (DDIM-100): kept cells equal the
    tag's feat.npz, regenerated cells moved;
+4e. the mesh path: `cli.sample.main(--tag ... --n_samples 2
+   --pipeline_chunk 2)` (DDPM-1000, one batch-2 chain,
+   --reso 256, --texreso 2048, --n_faces 10000) with the launch counts
+   checked (K2: the geo grids' slabs plus the texel chunks of each
+   sample's texel count), each sample's voxel occupancy, object.obj
+   (faces, vertices inside the AABB) and object.png (a 2048x2048 RGB PNG,
+   parsed here with zlib), and the seconds of each stage per sample;
+4f. sample 0's feat.npz decoded at reso 64, texture reso 256 on the card
+   (K2, bf16) and on the host CPU (the plain versions, bf16 operands): the
+   fp32 grids, each int8 grid against numpy's floor quantization of its
+   own fp32 grid, the int8 voxels that differ (share bound
+   INT8_SHARE_BOUND), sign flips, the marching-cubes face counts and the
+   texels of one atlas compared; and the main path's reso-256 int8 grid
+   is exactly the quantization of the card's fp32 grid, its sparse wire
+   encoded on the card equal to its encoding on the CPU;
 5. where a chain step's time goes, per configuration (default, stats
    chain, fused act): host-clock time per DDPM step and, from
    torch.profiler, the device's busy share, operations per step and top
@@ -66,7 +81,14 @@ BF16_ULP = 2.0 ** -7
 F32_TOL = 1e-4
 # K2 with bf16 operands: fp32 out; a hidden activation that rounds to the
 # other bf16 neighbour moves the output by far less than one bf16 step
+# (the geo grid's outputs, small beside the head's terms, exceed it on some
+# samples: scripts/torch_int8_share.py, PERF.md)
 K2_BF16_TOL = 2.0 ** -8
+# int8 geo-grid voxels a bucket apart between K2 (bf16) and the plain
+# version, as a share of the voxels at reso 64: 1.5x the largest of the
+# 17 readings of scripts/torch_int8_share.py (seed 0: 1.049e-3), rounded
+# up at one significant digit (PERF.md, PR 4)
+INT8_SHARE_BOUND = 2e-3
 # K1′ stats, fp32 sums of each side's own rounded y: against the kernel's
 # own y in fp64, summation order only (k-term fp32 sums err by at most
 # k * 2^-24 of the sum of |terms|; the kernel's longest run is 32 rows a
@@ -448,6 +470,37 @@ def k2_library(params, x):
     return h
 
 
+def k2_times(params, x) -> dict:
+    """K2 (bf16) on x: times of the kernel (CUDA events, and its device
+    time from the profiler), the plain version and the `torch.matmul`
+    yardstick (events and device), with the call's operations, bytes and
+    bound."""
+    import torch
+    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
+
+    def kernel():
+        return skip_mlp(params, x, mxu_dtype=torch.bfloat16)
+
+    layers = params["first"] + params["second"]
+    n_rows, cin = x.shape
+    cout = layers[-1]["w"].shape[1]
+    flops = 2.0 * n_rows * sum(lp["w"].shape[0] * lp["w"].shape[1]
+                               for lp in layers)
+    nbytes = (4.0 * n_rows * (cin + cout)
+              + sum(2.0 * lp["w"].numel() + 4.0 * lp["b"].numel()
+                    for lp in layers))
+    bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    return {"ms": time_ms(kernel, iters=5),
+            "device_ms": device_ms(kernel, "mlp_bf16", calls=5),
+            "plain_ms": time_ms(lambda: skip_mlp_reference(
+                params, x, torch.bfloat16), iters=5),
+            "library_ms": time_ms(lambda: k2_library(params, x), iters=5),
+            "library_device_ms": device_ms(lambda: k2_library(params, x),
+                                           calls=5),
+            "flops": flops, "nbytes": nbytes, "bound_ms": bms,
+            "bound_by": by}
+
+
 def check_k2(ae_params, n_rows: int):
     import torch
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
@@ -475,22 +528,11 @@ def check_k2(ae_params, n_rows: int):
             if not ok:
                 fail(f"K2 {dt} {head} disagrees with its plain version")
             max_err = max(max_err, err)
-        ms = time_ms(lambda: skip_mlp(params, x, mxu_dtype=torch.bfloat16),
-                     iters=5)
-        dev = device_ms(lambda: skip_mlp(params, x, mxu_dtype=torch.bfloat16),
-                        "mlp_bf16", calls=5)
-        plain = time_ms(lambda: skip_mlp_reference(params, x,
-                                                   torch.bfloat16), iters=5)
-        lib = time_ms(lambda: k2_library(params, x), iters=5)
-        lib_dev = device_ms(lambda: k2_library(params, x), calls=5)
-        layers = params["first"] + params["second"]
-        flops = 2.0 * n_rows * sum(lp["w"].shape[0] * lp["w"].shape[1]
-                                   for lp in layers)
-        cout = layers[-1]["w"].shape[1]
-        nbytes = (4.0 * n_rows * (cin + cout)
-                  + sum(2.0 * lp["w"].numel() + 4.0 * lp["b"].numel()
-                        for lp in layers))
-        bms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        t = k2_times(params, x)
+        ms, dev, plain, lib, lib_dev, flops, nbytes = (
+            t[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                           "library_device_ms", "flops", "nbytes"))
+        bms, by = t["bound_ms"], t["bound_by"]
         print(f"K2 bf16 {head} N={n_rows}: kernel {ms:.3f} ms (device "
               f"{dev:.3f} ms), plain {plain:.3f} ms, library {lib:.3f} ms "
               f"(device {lib_dev:.3f} ms), bound {bms:.3f} ms ({by}), "
@@ -513,6 +555,46 @@ def check_k2(ae_params, n_rows: int):
           f"{totals['library_device_ms'] / totals['device_ms']:.2f}x by "
           "device time")
     return {**totals, "max_abs_err": max_err, "bound_by": by}
+
+
+def check_k2_mesh_shapes(ae_params, slab_rows: int, texel_rows: int):
+    """K2 at the shapes the mesh path gives it: the geo head alone over a
+    dense x-slab (`slab_rows` x 64 -> 1) and the texture head over one
+    texel chunk (`texel_rows` x 64 -> 3), bf16, against the plain version
+    and timed as `check_k2` times it.  Returns {head: numbers}."""
+    import torch
+    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for head, n_rows in (("geo_decoder", slab_rows),
+                         ("tex_decoder", texel_rows)):
+        params = ae_params[head]
+        cin = params["first"][0]["w"].shape[0]
+        x = torch.randn(n_rows, cin, generator=g, device="cuda") * 0.5
+        got = skip_mlp(params, x, mxu_dtype=torch.bfloat16)
+        ref = skip_mlp_reference(params, x, mxu_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= K2_BF16_TOL * max(scale, 1e-6):
+            fail(f"K2 bf16 {head} N={n_rows} disagrees with its plain "
+                 f"version: {err:.3e} of {scale:.3e}")
+
+        t = k2_times(params, x)
+        cout = got.shape[1]
+        print(f"K2 bf16 {head} alone N={n_rows} -> {cout} (mesh path): "
+              f"max_abs_err {err:.3e} of max |ref| {scale:.3e} (ok); kernel "
+              f"{t['ms']:.3f} ms (device {t['device_ms']:.3f} ms), plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms "
+              f"(device {t['library_device_ms']:.3f} ms), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}): "
+              f"{t['bound_ms'] / t['device_ms']:.1%} of the bound by device "
+              "time")
+        out[head] = {"rows": n_rows, "cout": cout, "max_abs_err": err,
+                     **{k: t[k] for k in ("ms", "device_ms", "plain_ms",
+                                          "library_ms", "library_device_ms",
+                                          "bound_ms", "bound_by")}}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -719,8 +801,302 @@ def check_inpaint(feats, H: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The mesh path
+# ---------------------------------------------------------------------------
+
+def texel_chunks(n: int, batch: int = 2 ** 20) -> int:
+    """K2 launches of one sample's texel decode (sdftex: one head): chunks
+    of a power of two rows, 2^12 to 2^20 (`_dispatch_texels_runs`)."""
+    batch = min(batch, 1 << max(12, max(n - 1, 1).bit_length()))
+    return len(range(0, max(n, 1), batch))
+
+
+def check_png(path: str, size: int) -> None:
+    """A valid 8-bit RGB PNG of size x size: signature, chunk CRCs, IHDR,
+    and the inflated IDAT's length and filter bytes (no PIL here)."""
+    import struct
+    import zlib
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, ihdr, tags = 8, b"", None, []
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            fail(f"{path}: bad CRC in {tag!r}")
+        tags.append(tag)
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    if tags[0] != b"IHDR" or tags[-1] != b"IEND" or ihdr is None:
+        fail(f"{path}: chunks {tags}")
+    if ihdr != (size, size, 8, 2, 0, 0, 0):
+        fail(f"{path}: IHDR {ihdr}, want {size}x{size} 8-bit RGB")
+    raw = zlib.decompress(idat)
+    row = 1 + 3 * size
+    if len(raw) != size * row or max(raw[::row]) > 4:
+        fail(f"{path}: {len(raw)} inflated bytes, want {size * row}")
+
+
+def obj_mesh(path: str):
+    """(vertices [n, 3], face count) of an object.obj."""
+    import numpy as np
+    v, nf = [], 0
+    with open(path) as fh:
+        for ln in fh:
+            if ln.startswith("v "):
+                v.append([float(x) for x in ln.split()[1:4]])
+            elif ln.startswith("f "):
+                nf += 1
+    return np.asarray(v, np.float64).reshape(-1, 3), nf
+
+
+STAGES = (("chain", ("chain",)), ("grid", ("sdf grid",)),
+          ("marching cubes", ("marching cubes",)),
+          ("decimation", ("decimation",)),
+          ("uv atlas + raster", ("uv atlas + raster",)),
+          ("texel decode", ("texel dispatch", "texel decode")),
+          ("export", ("voxel.npz", "texture assembly", "export")))
+
+
+def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
+               n_faces: int, slabs: int):
+    """`cli.main(argv + --output <dir>)`, the mesh path, with the launch
+    counts set to 0 just before and read just after.  Checks K1 against
+    `want_k1`, K2 against `slabs` geo launches per sample plus each
+    sample's texel chunks, and each sample's outputs.  Returns (main's
+    result, counts, output dir, per-sample stage seconds); the caller
+    removes the directory."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_mesh_")
+    reset_counts()
+    res = cli.main(argv + ["--output", out_dir])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = len(res["paths"])
+    texels = {e["dir"]: e["texels"] for e in res["stages"]
+              if e["stage"] == "texel dispatch"}
+    if len(texels) != n:
+        fail(f"mesh path: texel decodes for {len(texels)} of {n} samples")
+    want_k2 = n * slabs + sum(texel_chunks(t) for t in texels.values())
+    print(f"mesh path: K1 launches by form {counts['k1_forms']} (want "
+          f"{want_k1}), K2 launches {counts['k2']} (want {want_k2}: {n} x "
+          f"{slabs} geo-grid slabs + texel chunks of "
+          f"{sorted(texels.values())} texels)")
+    if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2:
+        fail("mesh path: the path did not launch the kernels as expected")
+    lo, hi = np.asarray(aabb[:3]), np.asarray(aabb[3:])
+    voxel = (hi.max() - lo.min()) / reso
+    per_sample = {}
+    for j in range(n):
+        d = os.path.join(out_dir, f"{j:03d}")
+        with np.load(os.path.join(d, "voxel.npz")) as f:
+            grid = f["vox_grid"]
+        occ = float(grid.mean())
+        v, nf = obj_mesh(os.path.join(d, "object.obj"))
+        inside = bool(((v >= lo - voxel) & (v <= hi + voxel)).all())
+        check_png(os.path.join(d, "object.png"), texreso)
+        with open(os.path.join(d, "object.mtl")) as fh:
+            mtl_ok = "map_Kd object.png" in fh.read()
+        print(f"mesh path sample {j}: voxel grid {tuple(grid.shape)}, "
+              f"occupancy {occ:.4f}; object.obj {nf} faces, {len(v)} "
+              f"vertices, inside the AABB widened by one voxel: {inside}; "
+              f"object.png {texreso}x{texreso} RGB, valid; "
+              f"{texels[d]} texels")
+        if not 0.15 <= occ <= 0.19:
+            fail(f"mesh path sample {j}: occupancy {occ:.4f} outside "
+                 "[0.15, 0.19]")
+        if not (0 < nf <= n_faces and inside and mtl_ok):
+            fail(f"mesh path sample {j}: {nf} faces, inside {inside}, "
+                 f"mtl {mtl_ok}")
+        secs = {}
+        for e in res["stages"]:
+            if e["dir"] == d:
+                secs[e["stage"]] = secs.get(e["stage"], 0.0) + e["seconds"]
+                if e["stage"] == "sdf grid":
+                    secs["sdf grid"] += e["dispatch"]
+        per_sample[j] = {name: sum(secs.get(k, 0.0) for k in keys)
+                         for name, keys in STAGES}
+        print(f"mesh path sample {j} seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in per_sample[j].items()))
+    print(f"mesh path: generate {res['seconds']:.3f} s for {n} samples "
+          f"({res['seconds'] / n:.3f} s per sample), host clock ending in "
+          "a device sync; stage seconds are host-clock spans (the export "
+          "runs on a worker thread beside the next sample's geometry)")
+    return res, counts, out_dir, per_sample
+
+
+def floor_quant(sdf, quant: float):
+    """The int8 wire's buckets of an fp32 grid, in numpy:
+    floor(clip(sdf / q, -1, 1) * 127) in fp32, with a true division."""
+    import numpy as np
+    one = np.float32(1.0)
+    return np.floor(np.clip(sdf / np.float32(quant), -one, one)
+                    * np.float32(127.0)).astype(np.int8)
+
+
+def int8_vs_plain(card, host, feat, reso: int, quant: float) -> dict:
+    """One triplane's geo grid at `reso` decoded by two trainers, the
+    card's (K2, bf16) and the host CPU's (the plain versions, bf16
+    operands), each as fp32 and as the path's int8 wire
+    (`decode_grid_dense(geo_only, quant_scale=quant)`).  Returns the fp32
+    grids' max abs difference and K2's tolerance for it, whether each
+    side's int8 grid equals numpy's floor(clip(fp32 / q, -1, 1) * 127) of
+    its own fp32 grid (a true division) exactly, the int8 voxels that
+    differ (count, share, largest difference in buckets), the sign flips
+    and both int8 grids."""
+    import numpy as np
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions
+    from sin3dm_tpu_torch.models import autoencoder as ae
+    res = tuple(int(x) for x in grid_resolutions(card._feat_aabb(feat),
+                                                 reso))
+    fp32, int8 = [], []
+    for tr in (card, host):
+        gp, tp = tr._planes(feat)
+        for out, q in ((fp32, None), (int8, quant)):
+            out.append(ae.decode_grid_dense(
+                tr.params, tr.acfg, gp, tp, res, geo_only=True,
+                quant_scale=q)[..., 0].cpu().numpy())
+    exact = [bool(np.array_equal(g, floor_quant(f, quant)))
+             for f, g in zip(fp32, int8)]
+    d = np.abs(int8[0].astype(np.int32) - int8[1].astype(np.int32))
+    n_diff = int((d > 0).sum())
+    return {"res": res, "fp32_err": float(np.abs(fp32[0] - fp32[1]).max()),
+            "tol": K2_BF16_TOL * float(np.abs(fp32[1]).max()),
+            "exact": exact, "voxels": d.size, "differ": n_diff,
+            "share": n_diff / d.size,
+            "max_bucket": int(d.max()),
+            "flips": int(((int8[0] < 0) != (int8[1] < 0)).sum()),
+            "grids": int8}
+
+
+def card_vs_plain(feat_path: str, reso: int = 64, texreso: int = 256):
+    """Sample 0's feat.npz at `reso`/`texreso` on the card (K2, bf16) and on
+    the host CPU (the plain versions, bf16 operands).  Every check runs and
+    prints before any failure is raised:
+
+    - the fp32 sdf grids within K2's bf16 tolerance, K2_BF16_TOL of the
+      largest |sdf| (met by this sample; scripts/torch_int8_share.py
+      finds other samples' geo grids above it, PERF.md);
+    - each side's int8 grid exactly the floor quantization of its own fp32
+      grid (`int8_vs_plain`);
+    - the int8 grids: voxels that differ do so by one bucket, at most
+      INT8_SHARE_BOUND of them; sign flips at most 1e-4 of the voxels, and
+      equal marching-cubes face counts wherever no sign flipped;
+    - the texel decode of one atlas (the card's mesh): none off by more
+      than 2, fewer than 1 % by more than 1 (hidden activations may round
+      to the other bf16 neighbour);
+    - the main path's reso-256 int8 grid (`_dispatch_geo_grid`) exactly
+      the floor quantization of the card's fp32 grid, and its sparse wire
+      encoded on the card equal to its encoding on the CPU (the block
+      order compared exactly)."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core.triplane import load_triplane_npz
+    from sin3dm_tpu_torch.geometry import meshproc, uvatlas
+    from sin3dm_tpu_torch.models import autoencoder as ae
+    from sin3dm_tpu_torch.ops import sparse_grid
+    args = cli.cfgmod.sample_args(["--tag", TAG])
+    card = cli._make_trainer(args, torch.device("cuda"))
+    host = cli._make_trainer(args, torch.device("cpu"))
+    feat = load_triplane_npz(feat_path)
+    aabb = card._feat_aabb(feat)
+    quant = float(card.meta["threshold"])
+    failed = []
+
+    r = int8_vs_plain(card, host, feat, reso, quant)
+    ok = r["fp32_err"] <= r["tol"]
+    print(f"card vs plain, fp32 sdf grid {r['res']} at reso {reso}: "
+          f"max_abs_err {r['fp32_err']:.3e} (tol {r['tol']:.3e}, "
+          f"{K2_BF16_TOL:.3e} of max |sdf|) ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failed.append("fp32 sdf grid")
+    print(f"int8 grid = floor(clip(fp32 / q, -1, 1) * 127) of its own fp32 "
+          f"grid, exactly: card {r['exact'][0]}, host {r['exact'][1]} "
+          f"({'ok' if all(r['exact']) else 'FAIL'})")
+    if not all(r["exact"]):
+        failed.append("int8 quantization")
+    gc, gh = r["grids"]
+    n = gc.size
+    meshes = [meshproc.sdfgrid_to_mesh((g.astype(np.float32) + 0.5)
+                                       * (quant / 127.0)) for g in (gc, gh)]
+    faces = [len(m[1]) for m in meshes]
+    ok = (r["max_bucket"] <= 1 and r["share"] <= INT8_SHARE_BOUND
+          and r["flips"] <= 1e-4 * n
+          and (r["flips"] > 0 or faces[0] == faces[1]))
+    print(f"card vs plain, int8 grid {gc.shape}: {r['differ']} voxels differ "
+          f"({r['share']:.3e} of them, bound {INT8_SHARE_BOUND:.1e}), max "
+          f"{r['max_bucket']} bucket; {r['flips']} sign flips "
+          f"({r['flips'] / n:.2e}, bound 1e-4); marching cubes {faces[0]} / "
+          f"{faces[1]} faces ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failed.append("int8 grid")
+
+    # the texels of one atlas: the card's mesh, as the path builds it
+    v, f = meshes[0]
+    box = aabb[3:].max() - aabb[:3].min()
+    v, f = meshproc.mesh_decimation(v / reso * box + aabb[:3], f, 10000)
+    _, _, mask, runs = uvatlas.uv_unwrap_and_rasterize_runs(v, f, texreso)
+    tc = card._dispatch_texels_runs(feat, runs, aabb)
+    th = host._dispatch_texels_runs(feat, runs, aabb)
+    n = tc[1]
+    tex_c = np.concatenate(tc[0].wait())[:n].astype(np.int32)
+    tex_h = np.concatenate(th[0].wait())[:n].astype(np.int32)
+    dt = np.abs(tex_c - tex_h)
+    ok = dt.max() <= 2 and (dt > 1).mean() < 0.01
+    print(f"card vs plain, texels of one atlas ({n} texels at texture reso "
+          f"{texreso}): max diff {dt.max()}, {(dt > 0).mean():.3%} differ, "
+          f"{(dt > 1).mean():.3%} by more than 1 ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        failed.append("texels")
+
+    # the main path's reso-256 grid: its int8 buckets from the card's fp32
+    # grid, and the sparse wire's block order on the card
+    h = card._dispatch_geo_grid(feat, 256, aabb)
+    sc = h.fetch.wait()
+    gp, tp = card._planes(feat)
+    f256 = ae.decode_grid_dense(card.params, card.acfg, gp, tp,
+                                tuple(h.grid.shape), geo_only=True)
+    exact = bool(np.array_equal(h.grid.cpu().numpy(),
+                                floor_quant(f256[..., 0].cpu().numpy(),
+                                            h.quant)))
+    print(f"reso-256 int8 grid {tuple(h.grid.shape)} = floor(clip(fp32 / q, "
+          f"-1, 1) * 127) of the card's fp32 grid, exactly: {exact}")
+    if not exact:
+        failed.append("reso-256 int8 quantization")
+    sh = sparse_grid.encode(h.grid.cpu())
+    cnt = int(sh.count)
+    same = (int(sc[3]) == cnt and np.array_equal(sc[0], sh.signs.numpy())
+            and np.array_equal(sc[1][:cnt], sh.block_ids.numpy()[:cnt])
+            and np.array_equal(sc[2][:cnt], sh.block_vals.numpy()[:cnt]))
+    print(f"sparse wire of the reso-256 grid {tuple(h.grid.shape)}: {cnt} "
+          f"flagged blocks of capacity {len(sc[1])}; the card's encoding "
+          f"equals the CPU's: {same}")
+    if not same:
+        failed.append("sparse wire")
+    if failed:
+        fail(f"card vs plain: {', '.join(failed)} outside the bounds")
+    return {"fp32_max_abs_err": r["fp32_err"],
+            "int8_exact": r["exact"] + [exact],
+            "int8_voxels_differing": r["differ"], "int8_share": r["share"],
+            "sign_flips": r["flips"], "faces": faces,
+            "texel_max_diff": int(dt.max()),
+            "texels_differing": float((dt > 0).mean()),
+            "sparse_flagged_blocks": cnt}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -729,6 +1105,8 @@ def main() -> int:
     from sin3dm_tpu_torch.cli import sample as cli
     from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
     from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions
+    from sin3dm_tpu_torch.geometry import native
     from sin3dm_tpu_torch.models.unet import k1_launches_by_form
     from sin3dm_tpu_torch.ops import _build, pack_params
 
@@ -742,10 +1120,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build
+    # 2. build: the kernels, and the geometry library beside them
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    built = _build.build(["fused_conv", "fused_mlp"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    with ThreadPoolExecutor(1) as pool:
+        geo = pool.submit(native.build)
+        built = _build.build(["fused_conv", "fused_mlp"])
+        print(f"build: {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+        geo_build = geo.result()
+    print(f"build: geometry library (g++ {' '.join(geo_build['flags'])}) "
+          f"{geo_build['seconds']:.1f} s, {geo_build['path']}")
     for name, info in built.items():
         for line in info["log"].splitlines():
             if "registers" in line or "bytes stack" in line:
@@ -762,6 +1146,7 @@ def main() -> int:
     gx, gy, gz = meta["grid_shape"]
     slab_rows = 8 * gy * gz
     k2 = check_k2(ae_params, slab_rows)
+    k2_mesh = check_k2_mesh_shapes(ae_params, slab_rows, 2 ** 20)
 
     # 4. main path, default configuration
     vox = ["--tag", TAG, "--vox", "--n_samples", "2"]
@@ -797,6 +1182,23 @@ def main() -> int:
         _, inpaint_counts, feats = drive_vox("inpaint", inpaint, want(100),
                                              want_k2, occupancy=False)
     check_inpaint(feats, feats[0][0].shape[1])
+
+    # 4e. the mesh path, default configuration
+    # one batch-2 chain: the chunk is min(--pipeline_chunk, the diffusion
+    # args.json's diff_batch_size (32), --n_samples)
+    mesh_argv = ["--tag", TAG, "--n_samples", "2", "--pipeline_chunk", "2"]
+    margs = cli.cfgmod.sample_args(mesh_argv)
+    aabb = np.asarray(meta["aabb"], np.float64)
+    slabs = -(-int(grid_resolutions(aabb, margs.reso)[0]) // 8)
+    with configuration("default"):
+        mesh_res, mesh_counts, mesh_dir, mesh_secs = drive_mesh(
+            mesh_argv, want(n_steps), aabb, margs.reso, margs.texreso,
+            margs.n_faces, slabs)
+    try:
+        # 4f. the card against the plain path on sample 0's feat.npz
+        parity = card_vs_plain(os.path.join(mesh_dir, "000", "feat.npz"))
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
 
     # 5. where a chain step's time goes, per configuration
     prof = {}
@@ -863,9 +1265,12 @@ def main() -> int:
             ratios=ratios, forward_parity_max_abs=parity_err,
             inpaint_launches=inpaint_counts["k1_forms"]),
         row("skip_mlp", "sin3dm_tpu_torch/csrc/fused_mlp.cu",
-            "sin3dm_tpu/ops/fused_mlp.py:79", main_counts["k2"], k2,
+            "sin3dm_tpu/ops/fused_mlp.py:79",
+            main_counts["k2"] + mesh_counts["k2"], k2,
             device_ms=k2["device_ms"],
-            library_device_ms=k2["library_device_ms"]),
+            library_device_ms=k2["library_device_ms"],
+            launches_vox=main_counts["k2"], launches_mesh=mesh_counts["k2"],
+            mesh_shapes=k2_mesh),
     ]
     print("kernel times: K1 per UNet forward at batch 2 (8 triplane "
           "launches), K1' per stats-chained forward (3 act+stats + 3 "
@@ -875,7 +1280,13 @@ def main() -> int:
           "the longer; 'host_ms' that host time alone), 'device_ms' the "
           "kernels' own time from the profiler, 'library_ms' and "
           "'library_device_ms' the yardstick's by the same two methods; "
-          "launches from each configuration's --vox run")
+          "launches from each configuration's --vox run; K2's summed over "
+          "the default --vox run and the mesh path's run, with its times "
+          "at the mesh path's shapes under 'mesh_shapes'")
+    print("mesh path per sample (s): " + json.dumps(
+        {"generate_s_per_sample": mesh_res["seconds"] / len(
+            mesh_res["paths"]), "stages": mesh_secs,
+         "card_vs_plain": parity}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,18 @@
 """Sampling CLI of the port (counterpart of `sin3dm_tpu/cli/sample.py`):
 
-    python -m sin3dm_tpu_torch.cli.sample --tag T --vox [--n_samples N]
+    python -m sin3dm_tpu_torch.cli.sample --tag T [--n_samples N] [--vox]
         [--use_ddim true --timestep_respacing ddim100] [--resize 1 1 1.5]
+        [--reso 256 --texreso 2048 --n_faces 10000] [--pipeline_chunk K]
         [--inpaint true --inpaint_region x0 x1 y0 y1 z0 z1
          [--inpaint_feat F] [--is_mask_t0 true]] [--device cuda|cpu]
 
-Draws triplane samples from the trained diffusion model, writes one
-`feat.npz` per sample under `<tag>/<output>/<j:03d>/`, and with `--vox`
-decodes each to `r{reso}_voxel.npz`.  Runs on the card unless
-`--device cpu` is given; asking for the card where there is none raises.
+Draws triplane samples from the trained diffusion model and writes one
+`feat.npz` per sample under `<tag>/<output>/<j:03d>/`.  By default each
+sample is then decoded to a textured mesh (`object.obj`, `.mtl`, `.png`)
+and `voxel.npz` (`generate`: chunks of `--pipeline_chunk` samples, each
+chunk's meshes decoded after the next chunk's chain); with `--vox` to
+`r{reso}_voxel.npz` only.  Runs on the card unless `--device cpu` is
+given; asking for the card where there is none raises.
 
 Numerics follow the JAX package's accelerator defaults: a bf16 UNet
 torso with fp32 GroupNorm statistics (`SIN3DM_SAMPLE_DTYPE=train` keeps
@@ -17,12 +21,13 @@ the args.json dtype) and bf16 operands in the decode heads
 `SIN3DM_FUSED_ACT=1` select the UNet's opt-in configurations
 (`models/unet.py`).  `--inpaint` (DDIM only) keeps the tag's own
 `feat.npz` (or `--inpaint_feat`) outside the box `--inpaint_region` and
-regenerates inside it.  The mesh path (no `--vox`), data-parallel and
-spatial sampling are later slices.
+regenerates inside it.  Data-parallel and spatial sampling are later
+slices.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import time
 
@@ -156,20 +161,95 @@ def sample_diffusion(args):
 def _make_trainer(args, device):
     from ..training.ae import AETrainer
     trainer = AETrainer(cfgmod.encoding_log_dir(args.tag),
-                        cfgmod.ae_config_from_args(args), device)
+                        cfgmod.ae_config_from_args(args), device,
+                        cfgmod.ae_trainer_config_from_args(args))
     trainer.load_ckpt("final")
     return trainer
 
 
+def _find_mtl(args):
+    """The training mesh's .mtl (its scalar params go into each
+    object.mtl) where `--copy_mtl` and the data path name one."""
+    if not args.vox and args.copy_mtl and getattr(args, "data_path", None):
+        cands = glob.glob(os.path.join(
+            os.path.dirname(args.data_path), "mesh/*.mtl"))
+        return cands[0] if cands else None
+    return None
+
+
 def decode(args, paths):
-    """Decode saved feat.npz files to voxel grids (--vox)."""
-    if not args.vox:
-        raise NotImplementedError("mesh path: ROADMAP slice 2")
+    """Decode saved feat.npz files: to voxel grids with --vox, else to
+    textured meshes, several samples at once in threads (their host
+    geometry overlaps; the trainer keeps their device dispatch apart)."""
     device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
     trainer = _make_trainer(args, device)
-    for p in paths:
-        trainer.decode_voxel(os.path.dirname(p), load_triplane_npz(p),
-                             args.reso)
+    if args.vox:
+        for p in paths:
+            trainer.decode_voxel(os.path.dirname(p), load_triplane_npz(p),
+                                 args.reso)
+        return
+    mtl_path = _find_mtl(args)
+    kw = dict(n_faces=args.n_faces, texture_reso=args.texreso,
+              save_highres_mesh=False, n_surf_pc=-1, mtl_path=mtl_path,
+              file_format=args.file_format)
+    workers = min(4, max(1, len(paths)), os.cpu_count() or 1)
+    if workers == 1:
+        trainer.decode_texmesh_many(
+            [os.path.dirname(p) for p in paths],
+            [load_triplane_npz(p) for p in paths], args.reso, **kw)
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    def decode_one(path):
+        trainer.decode_texmesh(os.path.dirname(path),
+                               load_triplane_npz(path), args.reso, **kw)
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(decode_one, paths))
+
+
+def generate(args):
+    """Sample and decode to meshes through the trainer's cross-chunk
+    pipeline (`AETrainer.pipelined_generate`): chunks of --pipeline_chunk
+    samples; a chunk's geo grids are queued after its chain, its meshes
+    decoded after the next chunk's chain.  Sample j depends only on
+    (--seed, j), whatever the chunking.  Returns (paths, the trainer's
+    stage log, with each sample's share of its chunk's chain)."""
+    sampler, C, sizes, device = _build_sampler(args)
+    trainer = _make_trainer(args, device)
+    trainer.stage_log = []
+    mtl_path = _find_mtl(args)
+    result_dir = os.path.join(args.tag, args.output)
+    os.makedirs(result_dir, exist_ok=True)
+    seed = int(getattr(args, "seed", 0))
+    chunk = max(1, min(int(getattr(args, "pipeline_chunk", 1) or 1),
+                       args.diff_batch_size, args.n_samples))
+    paths = []
+    chain_seconds = {}
+
+    def sample_chunk(i):
+        t0 = time.perf_counter()
+        samples = sampler(seed, i, min(chunk, args.n_samples - i), C, sizes)
+        _sync(device)
+        chain_seconds[i] = time.perf_counter() - t0
+        return samples
+
+    def prepare_chunk(i, samples):
+        bs = min(chunk, args.n_samples - i)
+        new = _save_samples(result_dir, samples, i, bs)
+        paths.extend(new)
+        dirs = [os.path.dirname(p) for p in new]
+        for d in dirs:
+            trainer.stage_log.append({"dir": d, "stage": "chain",
+                                      "seconds": chain_seconds[i] / bs})
+        return dirs, [samples.map(lambda p, j=j: p[j]) for j in range(bs)]
+
+    trainer.pipelined_generate(
+        range(0, args.n_samples, chunk), sample_chunk, prepare_chunk,
+        args.reso, n_faces=args.n_faces, texture_reso=args.texreso,
+        save_highres_mesh=False, n_surf_pc=-1, mtl_path=mtl_path,
+        file_format=args.file_format)
+    return paths, trainer.stage_log
 
 
 def _sync(device: torch.device) -> None:
@@ -178,13 +258,19 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None):
-    """Sample, then decode.  Returns {"paths", "sample_seconds",
-    "decode_seconds"} (host clock, each phase ending in a device sync)."""
+    """With --vox: sample, then decode to voxel grids; returns {"paths",
+    "sample_seconds", "decode_seconds"} (host clock, each phase ending in a
+    device sync).  Else the mesh path (`generate`); returns {"paths",
+    "seconds", "stages"}: its host seconds and the per-sample stage log."""
     args = cfgmod.sample_args(argv)
-    if not args.vox:
-        raise NotImplementedError("mesh path: ROADMAP slice 2")
     device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
     t0 = time.perf_counter()
+    if not args.vox:
+        paths, stages = generate(args)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        print(f"generated {len(paths)} meshes in {seconds:.3f} s")
+        return {"paths": paths, "seconds": seconds, "stages": stages}
     paths = sample_diffusion(args)
     _sync(device)
     t1 = time.perf_counter()

@@ -133,6 +133,13 @@ def ae_config_from_args(args):
         posenc=getattr(args, "posenc", 0))
 
 
+def ae_trainer_config_from_args(args):
+    """The decode's trainer settings; the texel wire stays at its default
+    (SIN3DM_TEXEL_WIRE selects another)."""
+    from ..training.ae import AETrainerConfig
+    return AETrainerConfig(sdf_renorm=bool(args.sdf_renorm))
+
+
 def unet_config_from_args(args):
     import torch
     from ..models.unet import UNetConfig

@@ -6,10 +6,13 @@
 gathers: voxel centres are exactly the half-pixel sample positions of
 `grid_sample(align_corners=False)`, so sampling a plane over the grid is
 a bilinear resize of the plane, and the MLP heads then run over x-slabs
-of the broadcast sum of the three resized planes.  Skip heads go through
-the kernel K2 (`ops/fused_mlp.py`) with bf16 operands by default
-(`SIN3DM_DECODE_BF16=0` keeps them fp32).  The encoder, point decode and
-texel decode come with later slices (ROADMAP.md).
+of the broadcast sum of the three resized planes; `geo_only` with
+`quant_scale` gives the int8 sdf grid of the mesh path.  `decode_points`
+samples the planes at world points, `decode_texels*` gives uint8 texel
+colours, over points or over the run-length texel wire.  Skip heads go
+through the kernel K2 (`ops/fused_mlp.py`) with bf16 operands by default
+(`SIN3DM_DECODE_BF16=0` keeps them fp32).  The encoder comes with a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..core import nn
+from ..core.gridsample import sample_triplane_features
 from ..core.triplane import Triplane
 from ..ops.fused_mlp import skip_mlp
 
@@ -134,14 +138,58 @@ def process_planes(params: Dict, cfg: AEConfig,
     return geo, tex
 
 
+
+
+def normalize_points(pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """Map points from the AABB `[6]` (lo, hi) to [-1, 1]^3."""
+    lo, hi = aabb[:3], aabb[3:]
+    return 2.0 * (pts - lo) / (hi - lo) - 1.0
+
+
+def _tex_heads(params: Dict, cfg: AEConfig, h: torch.Tensor) -> torch.Tensor:
+    """Texture heads over texture features `[N, C]`: PBR's rgb/mr/normal
+    heads side by side (no sigmoid), else sigmoid of the tex head."""
+    if cfg.posenc > 0:
+        h = sinusoidal_encode(h, cfg.posenc)
+    if cfg.enc_net_type == "pbr":
+        return torch.cat([_head_apply(cfg, params[k], h)
+                          for k in ("rgb_decoder", "mr_decoder",
+                                    "normal_decoder")], dim=-1)
+    return torch.sigmoid(_head_apply(cfg, params["tex_decoder"], h))
+
+
+@torch.no_grad()
+def decode_points(params: Dict, cfg: AEConfig, geo_planes: Triplane,
+                  tex_planes, pts: torch.Tensor,
+                  aabb: torch.Tensor) -> torch.Tensor:
+    """World points `[N, 3]` -> `[N, 1 + tex_channels]` (sdf first); the
+    planes are `process_planes`' outputs with a batch dim of 1."""
+    x = normalize_points(pts, aabb)
+    sdf = _head_apply(cfg, params["geo_decoder"], sample_triplane_features(
+        geo_planes.map(lambda a: a[0]), x))
+    if not cfg.use_tex:
+        return sdf
+    h_tex = sample_triplane_features(tex_planes.map(lambda a: a[0]), x)
+    return torch.cat([sdf, _tex_heads(params, cfg, h_tex)], dim=-1)
+
+
 @torch.no_grad()
 def decode_grid_dense(params: Dict, cfg: AEConfig, geo_planes: Triplane,
                       tex_planes, grid_res: Tuple[int, int, int],
-                      slab: int = 8) -> torch.Tensor:
-    """Dense AABB-grid decode -> `[Nx, Ny, Nz, 1 + tex_channels]` fp32 on
-    the planes' device.  The heads run over x-slabs of `slab` rows (the
-    last slab may be shorter; the JAX side pads it, same values)."""
+                      slab: int = 8, geo_only: bool = False,
+                      out_dtype=None, quant_scale=None) -> torch.Tensor:
+    """Dense AABB-grid decode -> `[Nx, Ny, Nz, 1 + tex_channels]` (only the
+    sdf channel with `geo_only`) on the planes' device.  The heads run
+    over x-slabs of `slab` rows (the last may be shorter; the JAX side pads
+    it, same values).
+
+    `quant_scale` q: the int8 wire, floor(clip(out / q, -1, 1) * 127): a
+    floor keeps the sign of every voxel, and the division is a true one
+    (a 0-dim tensor divisor: torch's CUDA division by a host scalar
+    multiplies by its reciprocal).  Else `out_dtype` (fp16 for the sdf data
+    type), else fp32."""
     Nx, Ny, Nz = grid_res
+    use_tex = cfg.use_tex and not geo_only
 
     def plane_grids(planes: Triplane):
         return (nn.resize_bilinear(planes.xy[0], (Nx, Ny)),
@@ -149,31 +197,86 @@ def decode_grid_dense(params: Dict, cfg: AEConfig, geo_planes: Triplane,
                 nn.resize_bilinear(planes.yz[0], (Ny, Nz)))
 
     g_xy, g_xz, g_yz = plane_grids(geo_planes)
-    if cfg.use_tex:
+    if use_tex:
         t_xy, t_xz, t_yz = plane_grids(tex_planes)
-    n_out = 1 + (cfg.tex_channels if cfg.use_tex else 0)
-    out = torch.empty((Nx, Ny, Nz, n_out), dtype=torch.float32,
-                      device=g_xy.device)
+    n_out = 1 + (cfg.tex_channels if use_tex else 0)
+    dev = g_xy.device
+    if quant_scale is not None:
+        dtype = torch.int8
+        q = torch.full((), float(quant_scale), dtype=torch.float32,
+                       device=dev)
+    else:
+        dtype = out_dtype or torch.float32
+    out = torch.empty((Nx, Ny, Nz, n_out), dtype=dtype, device=dev)
     for x0 in range(0, Nx, slab):
         sl = slice(x0, min(x0 + slab, Nx))
         h_geo = (g_xy[sl][:, :, None, :] + g_xz[sl][:, None, :, :]
                  + g_yz[None, :, :, :])                  # [s, Ny, Nz, C]
         s = h_geo.shape[0]
-        sdf = _head_apply(cfg, params["geo_decoder"],
+        res = _head_apply(cfg, params["geo_decoder"],
                           h_geo.reshape(-1, h_geo.shape[-1]))
-        out[sl, ..., :1] = sdf.reshape(s, Ny, Nz, 1)
-        if not cfg.use_tex:
-            continue
-        h_tex = (t_xy[sl][:, :, None, :] + t_xz[sl][:, None, :, :]
-                 + t_yz[None, :, :, :])
-        ht = h_tex.reshape(-1, h_tex.shape[-1])
-        if cfg.posenc > 0:
-            ht = sinusoidal_encode(ht, cfg.posenc)
-        if cfg.enc_net_type == "pbr":
-            tex = torch.cat([_head_apply(cfg, params[k], ht)
-                             for k in ("rgb_decoder", "mr_decoder",
-                                       "normal_decoder")], dim=-1)
-        else:
-            tex = torch.sigmoid(_head_apply(cfg, params["tex_decoder"], ht))
-        out[sl, ..., 1:] = tex.reshape(s, Ny, Nz, -1)
+        if use_tex:
+            h_tex = (t_xy[sl][:, :, None, :] + t_xz[sl][:, None, :, :]
+                     + t_yz[None, :, :, :])
+            res = torch.cat([res, _tex_heads(
+                params, cfg, h_tex.reshape(-1, h_tex.shape[-1]))], dim=-1)
+        res = res.reshape(s, Ny, Nz, n_out)
+        if quant_scale is not None:
+            res = torch.floor(torch.clamp(res / q, -1.0, 1.0) * 127.0)
+        out[sl] = res.to(dtype)
     return out
+
+
+def decode_texels(params: Dict, cfg: AEConfig, tex_planes: Triplane,
+                  pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """Texture-only decode of world points `[N, 3]` -> uint8
+    `[N, tex_channels]` (the geo head skipped, colours quantized on the
+    device)."""
+    return _decode_texels_normalized(params, cfg, tex_planes,
+                                     normalize_points(pts, aabb))
+
+
+def decode_texels_q16(params: Dict, cfg: AEConfig, tex_planes: Triplane,
+                      q: torch.Tensor) -> torch.Tensor:
+    """`decode_texels` over AABB-relative 16-bit coordinates
+    q = round((p - lo) / (hi - lo) * 65535), given widened to int32."""
+    x = q.float() * (2.0 / 65535.0) - 1.0
+    return _decode_texels_normalized(params, cfg, tex_planes, x)
+
+
+def decode_texels_runs(params: Dict, cfg: AEConfig, tex_planes: Triplane,
+                       offsets: torch.Tensor, starts: torch.Tensor,
+                       steps: torch.Tensor, i0: int, aabb: torch.Tensor,
+                       batch: int, quantized: bool = False) -> torch.Tensor:
+    """`decode_texels` over the run-length texel wire: texel positions are
+    affine along each rasterized UV row, so the host sends per-run
+    (start, step) and cumulative counts, and the positions of global texel
+    indices [i0, i0 + batch) are expanded here.  Rows past the real texel
+    count decode values the caller trims.
+
+    offsets `[Rp+1]` int32 cumulative texel counts (padding repeats the
+    total); starts/steps `[Rp, 3]`.  `quantized` (the compact wire):
+    starts are AABB-relative 16-bit values widened to int32, steps fp16 in
+    normalized units, expanded in fp32 in the JAX package's order; else
+    both are fp32 world units."""
+    dev = offsets.device
+    i = i0 + torch.arange(batch, dtype=torch.int32, device=dev)
+    j = torch.searchsorted(offsets, i, right=True) - 1
+    j = torch.clamp(j, 0, starts.shape[0] - 1)
+    o = (i - offsets[j]).float()
+    if quantized:
+        x = (starts[j].float() * (2.0 / 65535.0) - 1.0
+             + steps[j].float() * o[:, None])
+    else:
+        x = normalize_points(starts[j] + steps[j] * o[:, None], aabb)
+    return _decode_texels_normalized(params, cfg, tex_planes, x)
+
+
+@torch.no_grad()
+def _decode_texels_normalized(params: Dict, cfg: AEConfig,
+                              tex_planes: Triplane,
+                              x: torch.Tensor) -> torch.Tensor:
+    h_tex = sample_triplane_features(tex_planes.map(lambda a: a[0]), x)
+    tex = _tex_heads(params, cfg, h_tex)
+    # truncating cast, as the host's (clip(tex, 0, 1) * 255).astype(u8)
+    return (torch.clamp(tex, 0.0, 1.0) * 255.0).to(torch.uint8)

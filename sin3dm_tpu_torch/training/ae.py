@@ -1,14 +1,25 @@
 """Shape-autoencoder trainer, inference subset (counterpart of
-`sin3dm_tpu/training/ae.py`): load the trained weights and decode
-triplanes to dense grids and voxel files.  Training, evaluation, point
-and texel decode and the mesh export come with later slices
-(ROADMAP.md).
+`sin3dm_tpu/training/ae.py`): load the trained weights, decode triplanes
+to dense grids and voxel files, and run the mesh path — a dense int8 sdf
+grid on the device, sent to the host as the sparse near-surface wire,
+marching cubes, decimation, UV atlas and raster on the host, texel
+colours decoded on the device over the run-length texel wire, and the
+textured mesh written by a background export worker.  Training and
+evaluation come with later slices (ROADMAP.md).
+
+Device work is queued on the current stream; results travel to the host
+by copies into pinned memory that do not block (`_Fetch`), and the host
+reads them after their event.  One lock keeps the device dispatch of
+concurrent decode threads apart.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -16,9 +27,67 @@ import torch
 from ..compat.from_jax import ae_params_from_jax
 from ..core import checkpoint as ckpt
 from ..core.triplane import Triplane
-from ..dataio.grid import grid_resolutions
+from ..dataio.grid import grid_resolutions, sample_grid_points_aabb
+from ..geometry import meshio, meshproc, native, uvatlas
 from ..models import autoencoder as ae
 from ..ops import pack_params
+from ..ops import sparse_grid as _sg
+
+
+@dataclass
+class AETrainerConfig:
+    """The trainer settings the decode reads (`args.json`)."""
+    # the decoder emits threshold-normalized sdf values (int8 scale 1.0)
+    sdf_renorm: bool = False
+    # texture-bake point wire (SIN3DM_TEXEL_WIRE overrides):
+    #   "runs" (default): per-row position spans expanded on the device,
+    #       compact pack of u16 starts + f16 normalized steps, 16 B/run,
+    #   "runs32": the same spans in fp32 (28 B/run, positions exact),
+    #   "u16": AABB-relative uint16 points,
+    #   "f32": dense fp32 points.
+    texel_wire: str = "runs"
+
+
+class TexelRuns(NamedTuple):
+    """Run-length texel wire payload (`geometry/native.py
+    rasterize_uv_runs`): `[n, 7]` float32 rows of (start xyz, step xyz,
+    length) in row-major masked order."""
+    runs: np.ndarray
+
+
+class _Fetch:
+    """Device tensors on their way to pinned host memory: the copies are
+    queued without blocking and `wait()` returns numpy arrays once the
+    event recorded after them has passed.  CPU tensors pass through."""
+
+    def __init__(self, tensors: List[torch.Tensor]):
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = [t.to("cpu", non_blocking=True) for t in tensors]
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
+        else:
+            self.host = list(tensors)
+
+    def __len__(self) -> int:
+        return len(self.host)
+
+    def wait(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [t.numpy() for t in self.host]
+
+
+class GeoGrid(NamedTuple):
+    """A dispatched geo-grid decode: the device grid `[X, Y, Z]` (int8, or
+    fp16 for the sdf data type), its int8 scale (or None), the sparse
+    wire's shapes (or None), the fetch of what goes to the host (the
+    sparse arrays, else the grid) and the host seconds of the dispatch."""
+    grid: torch.Tensor
+    quant: Optional[float]
+    sparse: Optional[_sg.SparseGrid]
+    fetch: _Fetch
+    seconds: float
 
 
 def _with_batch(feat: Triplane) -> Triplane:
@@ -28,13 +97,36 @@ def _with_batch(feat: Triplane) -> Triplane:
     return feat
 
 
+def _u16_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A uint16 host array as int32 on `device`: uploaded as its 16 bits
+    (int16, which every device op takes) and widened there."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.uint16).view(np.int16))
+    return t.to(device).to(torch.int32) & 0xFFFF
+
+
 class AETrainer:
-    def __init__(self, log_dir: str, acfg: ae.AEConfig, device):
+    def __init__(self, log_dir: str, acfg: ae.AEConfig, device,
+                 tcfg: Optional[AETrainerConfig] = None):
         self.log_dir = log_dir
         self.acfg = acfg
+        self.tcfg = tcfg or AETrainerConfig()
         self.device = torch.device(device)
         self.params: Optional[Dict] = None
         self.meta: Dict = {}
+        # per-sample stage seconds of the mesh path, appended by the decode
+        # and the export worker where a caller sets a list here (`generate`
+        # does, for its own call): {"dir", "stage", "seconds", ...}
+        self.stage_log: Optional[List[Dict]] = None
+        # keeps the device dispatch of concurrent decode threads apart
+        self._device_lock = threading.Lock()
+        # one background writer for the export tail (texel fetch, texture
+        # assembly, PNG/OBJ write): its C++ and zlib parts release the
+        # interpreter lock, so it overlaps the next sample's geometry; one
+        # worker keeps file outputs ordered.  SIN3DM_ASYNC_EXPORT=0 runs
+        # the tail inline.
+        self._export_pool = None
+        self._export_futs: list = []
+        self._export_lock = threading.Lock()
 
     def load_ckpt(self, name: str) -> None:
         """Load params and meta from `ckpt_{name}.pth`: the `params/`
@@ -47,17 +139,109 @@ class AETrainer:
         self.params = pack_params(ae_params_from_jax(tree, self.device))
         self.meta = meta or {}
 
-    def decode_grid(self, feat: Triplane, reso: int,
-                    aabb=None) -> np.ndarray:
+    # -- export worker ------------------------------------------------------
+
+    def _submit_assemble(self, **kw) -> None:
+        """Run :meth:`_texmesh_assemble` on the background writer (inline
+        when SIN3DM_ASYNC_EXPORT=0)."""
+        if os.environ.get("SIN3DM_ASYNC_EXPORT", "1") in ("0", "false", ""):
+            self._texmesh_assemble(**kw)
+            return
+        with self._export_lock:
+            if self._export_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._export_pool = ThreadPoolExecutor(
+                    1, thread_name_prefix="sin3dm-export")
+            self._export_futs.append(
+                self._export_pool.submit(self._texmesh_assemble, **kw))
+
+    def _drain_exports(self) -> None:
+        """Wait for every submitted export; re-raise the first error."""
+        with self._export_lock:
+            futs, self._export_futs = self._export_futs, []
+        for fut in futs:
+            fut.result()
+
+    # -- decode --------------------------------------------------------------
+
+    def _planes(self, feat: Triplane):
+        feat = _with_batch(feat).to(device=self.device, dtype=torch.float32)
+        return ae.process_planes(self.params, self.acfg, feat)
+
+    def _aabb(self, aabb) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(aabb, np.float32).reshape(-1),
+                               device=self.device)
+
+    @torch.no_grad()
+    def decode_batch(self, feat: Triplane, points, batch_size: int = 2 ** 16,
+                     aabb=None) -> np.ndarray:
+        """Point decode in chunks -> `[N, 1 + Ct]` fp32 numpy, texture
+        channels clipped to [0, 1]; the plane convs run once."""
+        if aabb is None:
+            aabb = self.meta["aabb"]
+        points = np.asarray(points, np.float32)
+        N = points.shape[0]
+        if N == 0:
+            n_out = 1 + (self.acfg.tex_channels if self.acfg.use_tex else 0)
+            return np.zeros((0, n_out), np.float32)
+        aabb_d = self._aabb(aabb)
+        outs = []
+        with self._device_lock:
+            gp, tp = self._planes(feat)
+            for i in range(0, N, batch_size):
+                pts = torch.from_numpy(points[i:i + batch_size]).to(
+                    self.device)
+                outs.append(ae.decode_points(self.params, self.acfg, gp, tp,
+                                             pts, aabb_d).cpu().numpy())
+        preds = np.concatenate(outs, axis=0)
+        if preds.shape[-1] > 1:
+            preds[..., 1:] = np.clip(preds[..., 1:], 0.0, 1.0)
+        return preds
+
+    @torch.no_grad()
+    def decode_texels(self, feat: Triplane, points: np.ndarray, aabb=None,
+                      batch_size: int = 2 ** 20) -> np.ndarray:
+        """Texture-only point decode -> uint8 `[N, tex_channels]`."""
+        if aabb is None:
+            aabb = self.meta["aabb"]
+        points = np.asarray(points, np.float32)
+        aabb_d = self._aabb(aabb)
+        outs = []
+        with self._device_lock:
+            _, tp = self._planes(feat)
+            for i in range(0, points.shape[0], batch_size):
+                pts = torch.from_numpy(points[i:i + batch_size]).to(
+                    self.device)
+                outs.append(ae.decode_texels(self.params, self.acfg, tp, pts,
+                                             aabb_d).cpu().numpy())
+        if not outs:
+            return np.zeros((0, self.acfg.tex_channels), np.uint8)
+        return np.concatenate(outs, axis=0)
+
+    @torch.no_grad()
+    def decode_grid(self, feat: Triplane, reso: int, aabb=None,
+                    batch_size: int = 2 ** 16, dense: bool = True,
+                    geo_only: bool = False,
+                    transfer_dtype=None) -> np.ndarray:
         """Decode the AABB voxel-centre grid -> `[Nx, Ny, Nz, 1+Ct]` fp32
-        numpy, texture channels clipped to [0, 1]."""
+        numpy, texture channels clipped to [0, 1].  `dense` decodes it as
+        plane resizes (`decode_grid_dense`), else as points; `geo_only`
+        keeps the sdf channel; `transfer_dtype` rounds the grid to that
+        type on the device first."""
         if aabb is None:
             aabb = self.meta["aabb"]
         res = tuple(int(x) for x in grid_resolutions(np.asarray(aabb), reso))
-        feat = _with_batch(feat).to(device=self.device, dtype=torch.float32)
-        geo, tex = ae.process_planes(self.params, self.acfg, feat)
-        out = ae.decode_grid_dense(self.params, self.acfg, geo, tex, res)
-        preds = out.cpu().numpy()
+        if not dense:
+            coords = sample_grid_points_aabb(np.asarray(aabb), reso)
+            preds = self.decode_batch(feat, coords.reshape(-1, 3),
+                                      batch_size=batch_size, aabb=aabb)
+            return preds.reshape(*res, -1)
+        with self._device_lock:
+            geo, tex = self._planes(feat)
+            out = ae.decode_grid_dense(self.params, self.acfg, geo, tex, res,
+                                       geo_only=geo_only,
+                                       out_dtype=transfer_dtype)
+            preds = out.float().cpu().numpy()
         if preds.shape[-1] > 1:
             preds[..., 1:] = np.clip(preds[..., 1:], 0.0, 1.0)
         return preds
@@ -73,12 +257,426 @@ class AETrainer:
             return aabb * scale
         return aabb
 
+    def _feat_aabb(self, feat: Triplane) -> np.ndarray:
+        return self._resize_aabb(_with_batch(feat).sizes)
+
     def decode_voxel(self, save_dir: str, feat: Triplane, reso: int) -> None:
         """Write `r{reso}_voxel.npz` holding `vox_grid = sdf < 0`."""
-        feat = _with_batch(feat)
-        H, W, D = feat.sizes
-        new_aabb = self._resize_aabb((H, W, D))
+        new_aabb = self._feat_aabb(feat)
         os.makedirs(save_dir, exist_ok=True)
         sdf = self.decode_grid(feat, reso, aabb=new_aabb)[..., 0]
         np.savez_compressed(os.path.join(save_dir, f"r{reso}_voxel.npz"),
                             vox_grid=sdf < 0)
+
+    # -- the mesh path -------------------------------------------------------
+
+    def decode_texmesh(self, save_dir: str, feat: Triplane, reso: int,
+                       n_faces: int = 10000, n_surf_pc: int = -1,
+                       texture_reso: int = 2048, only_largest_cc: bool = True,
+                       save_highres_mesh: bool = False,
+                       save_voxel: bool = True, mtl_path=None,
+                       file_format: str = "obj",
+                       verbose: bool = False) -> None:
+        """The mesh path for one sample (see :meth:`decode_texmesh_many`)."""
+        self.decode_texmesh_many(
+            [save_dir], [feat], reso, n_faces=n_faces, n_surf_pc=n_surf_pc,
+            texture_reso=texture_reso, only_largest_cc=only_largest_cc,
+            save_highres_mesh=save_highres_mesh, save_voxel=save_voxel,
+            mtl_path=mtl_path, file_format=file_format, verbose=verbose)
+
+    def dispatch_geo_grids(self, feats, reso: int) -> List[GeoGrid]:
+        """Queue the geo-grid decodes of a batch of samples without
+        waiting for them; handles for `decode_texmesh_many`."""
+        return [self._dispatch_geo_grid(f, reso, self._feat_aabb(f))
+                for f in feats]
+
+    def decode_texmesh_many(self, save_dirs, feats, reso: int,
+                            n_faces: int = 10000, n_surf_pc: int = -1,
+                            texture_reso: int = 2048,
+                            only_largest_cc: bool = True,
+                            save_highres_mesh: bool = False,
+                            save_voxel: bool = True, mtl_path=None,
+                            file_format: str = "obj",
+                            grid_handles=None,
+                            pending_in=None, defer_last: bool = False,
+                            verbose: bool = False):
+        """The mesh path for a batch of samples, pipelined: every sample's
+        geo grid is queued first (unless `grid_handles` brings them); per
+        sample the host runs marching cubes, largest component,
+        renormalization into the AABB, decimation, UV atlas and raster,
+        then queues the texel decode, and the previous sample's assembly
+        (texel fetch, seam dilation, export) goes to the export worker.
+
+        With `defer_last` the last sample's assembly is not submitted: its
+        kwargs come back, for the next call's `pending_in`
+        (:meth:`pipelined_generate`).  Otherwise every export has finished
+        when this returns."""
+        def tick(save_dir, stage, t0, detail="", **info):
+            t = time.perf_counter()
+            if self.stage_log is not None:
+                self.stage_log.append({"dir": save_dir, "stage": stage,
+                                       "seconds": t - t0, **info})
+            if verbose:
+                print(f"  [decode_texmesh] {stage}{detail}: {t - t0:.2f}s",
+                      flush=True)
+            return t
+
+        aabbs = [self._feat_aabb(f) for f in feats]
+        if grid_handles is None:
+            grid_handles = [self._dispatch_geo_grid(f, reso, a)
+                            for f, a in zip(feats, aabbs)]
+        else:
+            grid_handles = list(grid_handles)
+
+        pending = pending_in
+        for idx, (save_dir, feat, new_aabb) in enumerate(
+                zip(save_dirs, feats, aabbs)):
+            t0 = time.perf_counter()
+            h = grid_handles[idx]
+            grid_handles[idx] = None
+            sdf_grid, sparse = self._fetch_geo_grid(h)
+            t0 = tick(save_dir, "sdf grid", t0,
+                      " (sparse wire)" if sparse is not None
+                      else f" {sdf_grid.shape}", dispatch=h.seconds)
+            cpu = self._texmesh_geometry(
+                save_dir, feat, sdf_grid, new_aabb, reso, n_faces,
+                n_surf_pc, texture_reso, only_largest_cc,
+                save_highres_mesh, save_voxel, tick, t0,
+                sparse=sparse, quant=h.quant)
+            if cpu is None:   # empty surface, or sdf only: nothing to bake
+                continue
+            t0 = time.perf_counter()
+            texel_handle = self._dispatch_texels(feat, cpu["texels"],
+                                                 new_aabb)
+            tick(save_dir, "texel dispatch", t0,
+                 f" ({texel_handle[1]} texels, {len(texel_handle[0])} "
+                 "launches)", texels=texel_handle[1],
+                 launches=len(texel_handle[0]))
+            if pending is not None:
+                self._submit_assemble(mtl_path=mtl_path,
+                                      file_format=file_format, tick=tick,
+                                      **pending)
+            pending = dict(save_dir=save_dir, cpu=cpu,
+                           texel_handle=texel_handle,
+                           texture_reso=texture_reso)
+        if defer_last:
+            return pending
+        if pending is not None:
+            self._submit_assemble(mtl_path=mtl_path, file_format=file_format,
+                                  tick=tick, **pending)
+        self._drain_exports()
+        return None
+
+    def pipelined_generate(self, chunks, sample_chunk, prepare_chunk,
+                           reso: int, **decode_kwargs) -> None:
+        """Cross-chunk sample + decode schedule (the JAX package's, call
+        for call): per chunk, run its reverse chain (`sample_chunk`),
+        decode the previous chunk's meshes (its last assembly deferred),
+        then `prepare_chunk(desc, samples) -> (save_dirs, feats)` and queue
+        this chunk's geo grids.  decode_kwargs go to
+        :meth:`decode_texmesh_many`."""
+        pending = None
+        pending_asm = None
+        try:
+            for desc in chunks:
+                samples = sample_chunk(desc)
+                if pending is not None:
+                    pending_asm = self.decode_texmesh_many(
+                        pending[0], pending[1], reso,
+                        grid_handles=pending[2], pending_in=pending_asm,
+                        defer_last=True, **decode_kwargs)
+                    pending = None
+                dirs, feats = prepare_chunk(desc, samples)
+                pending = (dirs, feats, self.dispatch_geo_grids(feats, reso))
+            if pending is not None:
+                self.decode_texmesh_many(
+                    pending[0], pending[1], reso, grid_handles=pending[2],
+                    pending_in=pending_asm, **decode_kwargs)
+                pending = None
+                pending_asm = None
+        except Exception:
+            # export what was already sampled, then raise the first error
+            try:
+                if pending is not None:
+                    self.decode_texmesh_many(
+                        pending[0], pending[1], reso,
+                        grid_handles=pending[2], pending_in=pending_asm,
+                        **decode_kwargs)
+                elif pending_asm is not None:
+                    self._texmesh_assemble(
+                        mtl_path=decode_kwargs.get("mtl_path"),
+                        file_format=decode_kwargs.get("file_format", "obj"),
+                        tick=lambda save_dir, stage, t0, *a, **k: t0,
+                        **pending_asm)
+                self._drain_exports()
+            except Exception:
+                pass   # the original error is what the caller must see
+            raise
+
+    @torch.no_grad()
+    def _dispatch_geo_grid(self, feat: Triplane, reso: int,
+                           aabb) -> GeoGrid:
+        """Queue the geo-only grid decode and its copy to the host.  The
+        clamped TSDF becomes int8 on the device (floor quantization keeps
+        every voxel's sign), scale the threshold (1.0 under sdf_renorm),
+        and travels as the sparse wire unless SIN3DM_SPARSE_GRID=0; the
+        sdf data type keeps fp16, as its path writes the raw grid."""
+        t0 = time.perf_counter()
+        res = tuple(int(x) for x in grid_resolutions(np.asarray(aabb), reso))
+        quant = None
+        if self.acfg.data_type != "sdf":
+            thr = float(self.meta["threshold"])
+            quant = 1.0 if self.tcfg.sdf_renorm else (
+                thr if thr > 0 else None)
+        with self._device_lock:
+            gp, tp = self._planes(feat)
+            grid = ae.decode_grid_dense(
+                self.params, self.acfg, gp, tp, res, geo_only=True,
+                out_dtype=None if quant is not None else torch.float16,
+                quant_scale=quant)[..., 0]
+            sparse = None
+            if (quant is not None
+                    and os.environ.get("SIN3DM_SPARSE_GRID", "1") != "0"):
+                sparse = _sg.encode(grid)
+                fetch = _Fetch([sparse.signs, sparse.block_ids,
+                                sparse.block_vals, sparse.count])
+            else:
+                fetch = _Fetch([grid])
+        return GeoGrid(grid, quant, sparse, fetch, time.perf_counter() - t0)
+
+    def _fetch_geo_grid(self, h: GeoGrid):
+        """(dense fp32 sdf grid or None, host SparseGrid or None) of a
+        dispatched geo grid.  Marching cubes reads the sparse wire directly
+        unless SIN3DM_SPARSE_MC=0; where the flagged blocks overflowed its
+        capacity, the dense grid is fetched instead."""
+        if h.sparse is not None:
+            signs, ids, vals, count = h.fetch.wait()
+            if int(count) <= ids.shape[0]:
+                sg = h.sparse._replace(signs=signs, block_ids=ids,
+                                       block_vals=vals, count=int(count))
+                if os.environ.get("SIN3DM_SPARSE_MC", "1") != "0":
+                    return None, sg
+                return _sg.decode_host(sg, h.quant), None
+            arr = h.grid.cpu().numpy()
+        else:
+            arr = h.fetch.wait()[0]
+        if h.quant is not None:
+            # floor-quantized: bucket k covers [k, k+1), centre k + 0.5
+            return (arr.astype(np.float32) + 0.5) * (h.quant / 127.0), None
+        return arr.astype(np.float32), None
+
+    @torch.no_grad()
+    def _dispatch_texels_runs(self, feat: Triplane, runs: np.ndarray,
+                              aabb, batch_size: int = 2 ** 20):
+        """Queue the uint8 texel decode over the run-length wire; returns
+        (chunk fetches, N).  The compact pack (default): u16 AABB-relative
+        starts, f16 normalized steps, int32 offsets, 16 B/run;
+        SIN3DM_TEXEL_WIRE=runs32 sends fp32 spans.  Chunks are of a power
+        of two rows, 2^12 to `batch_size`."""
+        aabb_np = np.asarray(aabb, np.float32).reshape(-1)
+        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
+        quantized = wire != "runs32"
+        lens = (runs[:, 6].astype(np.int64) if len(runs)
+                else np.zeros(0, np.int64))
+        N = int(lens.sum())
+        batch_size = min(batch_size,
+                         1 << max(12, max(N - 1, 1).bit_length()))
+        R = max(len(runs), 1)
+        Rp = 1 << max(10, (R - 1).bit_length())
+        offsets = np.full(Rp + 1, N, np.int32)
+        offsets[0] = 0
+        offsets[1:len(lens) + 1] = np.cumsum(lens, dtype=np.int64)
+        if quantized:
+            lo, span = aabb_np[:3], aabb_np[3:] - aabb_np[:3]
+            starts = np.zeros((Rp, 3), np.uint16)
+            steps = np.zeros((Rp, 3), np.float16)
+            starts[:len(runs)] = np.clip(
+                np.rint((runs[:, 0:3] - lo) / span * 65535.0),
+                0.0, 65535.0).astype(np.uint16)
+            steps[:len(runs)] = (runs[:, 3:6] * (2.0 / span)).astype(
+                np.float16)
+        else:
+            starts = np.zeros((Rp, 3), np.float32)
+            steps = np.zeros((Rp, 3), np.float32)
+            starts[:len(runs)] = runs[:, 0:3]
+            steps[:len(runs)] = runs[:, 3:6]
+
+        chunks = []
+        with self._device_lock:
+            _, tp = self._planes(feat)
+            off_d = torch.from_numpy(offsets).to(self.device)
+            st_d = (_u16_to_device(starts, self.device) if quantized
+                    else torch.from_numpy(starts).to(self.device))
+            sp_d = torch.from_numpy(steps).to(self.device)
+            aabb_d = self._aabb(aabb_np)
+            for i in range(0, max(N, 1), batch_size):
+                chunks.append(ae.decode_texels_runs(
+                    self.params, self.acfg, tp, off_d, st_d, sp_d, i, aabb_d,
+                    batch_size, quantized=quantized))
+            fetch = _Fetch(chunks)
+        return fetch, N
+
+    @torch.no_grad()
+    def _dispatch_texels(self, feat: Triplane, points, aabb,
+                         batch_size: int = 2 ** 20):
+        """Queue the uint8 texel decode; returns (fetch of the chunks, N).
+        `points` is a TexelRuns payload (`_dispatch_texels_runs`) or
+        `[N, 3]` points: uint16 AABB-relative (as given, or quantized here
+        unless SIN3DM_TEXEL_WIRE=f32) or fp32."""
+        if isinstance(points, TexelRuns):
+            return self._dispatch_texels_runs(feat, points.runs, aabb,
+                                              batch_size)
+        aabb_np = np.asarray(aabb, np.float32).reshape(-1)
+        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
+        pre_q16 = isinstance(points, np.ndarray) and points.dtype == np.uint16
+        q16 = wire != "f32" or pre_q16
+        if not pre_q16:
+            points = np.asarray(points, np.float32)
+            if q16:
+                lo, span = aabb_np[:3], aabb_np[3:] - aabb_np[:3]
+                points = np.clip(np.rint((points - lo) / span * 65535.0),
+                                 0.0, 65535.0).astype(np.uint16)
+        N = points.shape[0]
+        chunks = []
+        with self._device_lock:
+            _, tp = self._planes(feat)
+            aabb_d = self._aabb(aabb_np)
+            for i in range(0, N, batch_size):
+                chunk = points[i:i + batch_size]
+                n = chunk.shape[0]
+                if n < batch_size:   # one shape for every chunk
+                    chunk = np.pad(chunk, ((0, batch_size - n), (0, 0)))
+                if q16:
+                    out = ae.decode_texels_q16(
+                        self.params, self.acfg, tp,
+                        _u16_to_device(chunk, self.device))
+                else:
+                    out = ae.decode_texels(
+                        self.params, self.acfg, tp,
+                        torch.from_numpy(chunk).to(self.device), aabb_d)
+                chunks.append(out)
+            fetch = _Fetch(chunks)
+        return fetch, N
+
+    def _texmesh_geometry(self, save_dir: str, feat: Triplane,
+                          sdf_grid: Optional[np.ndarray], new_aabb,
+                          reso: int, n_faces: int, n_surf_pc: int,
+                          texture_reso: int, only_largest_cc: bool,
+                          save_highres_mesh: bool, save_voxel: bool, tick,
+                          t0, sparse=None, quant=None):
+        """Host geometry: voxel.npz, marching cubes (from the sparse wire
+        where given), largest component, renormalization into the AABB,
+        decimation, UV atlas and raster.  Returns None when there is
+        nothing to bake."""
+        os.makedirs(save_dir, exist_ok=True)
+        if save_voxel:
+            vox = (_sg.occupancy_host(sparse) if sparse is not None
+                   else sdf_grid < 0)
+            np.savez_compressed(os.path.join(save_dir, "voxel.npz"),
+                                vox_grid=vox)
+            t0 = tick(save_dir, "voxel.npz", t0)
+
+        if sparse is not None:
+            v, f = meshproc.sdfgrid_to_mesh_sparse(
+                sparse, quant, only_largest_cc=only_largest_cc)
+        else:
+            v, f = meshproc.sdfgrid_to_mesh(
+                sdf_grid, only_largest_cc=only_largest_cc)
+        t0 = tick(save_dir, "marching cubes", t0, f" ({len(f)} tris)")
+        if len(f) == 0:
+            # no zero crossing: an empty placeholder, not a crash later
+            print(f"decode_texmesh: empty surface, writing empty mesh to "
+                  f"{save_dir}")
+            meshio.save_mesh_vf(os.path.join(save_dir, "object.obj"),
+                                np.zeros((0, 3)), np.zeros((0, 3), int))
+            return None
+        if save_highres_mesh:
+            meshio.save_mesh_vf(
+                os.path.join(save_dir, f"mesh_r{reso}.obj"), v, f)
+
+        # index-space vertices into the AABB
+        box_min = new_aabb[:3]
+        box_size = new_aabb[3:].max() - new_aabb[:3].min()
+        v = v / reso * box_size + box_min
+
+        v, f = meshproc.mesh_decimation(v, f, n_faces)
+        t0 = tick(save_dir, "decimation", t0, f" ({len(f)} tris)")
+
+        if self.acfg.data_type == "sdf":
+            np.savez_compressed(os.path.join(save_dir, f"sdfgrid_r{reso}.npz"),
+                                sdf_grid=sdf_grid)
+            meshio.save_mesh_vf(
+                os.path.join(save_dir, f"mesh_r{reso}_simple.obj"), v, f)
+            return None
+
+        if n_surf_pc > 0:
+            fi, bc = meshproc.sample_mesh_random(v, f, n_surf_pc)
+            surf_pts = meshproc.interpolate_barycentric(f, fi, bc, v)
+            preds = self.decode_batch(feat, surf_pts, aabb=new_aabb)
+            meshio.save_colored_pointcloud_obj(
+                os.path.join(save_dir, f"surf_pc_n{n_surf_pc}.obj"),
+                surf_pts, np.clip(preds[..., 1:4], 0, 1))
+
+        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
+        if wire.startswith("runs"):
+            uvs, tex_idx, mask, runs = uvatlas.uv_unwrap_and_rasterize_runs(
+                v, f, texture_reso)
+            t0 = tick(save_dir, "uv atlas + raster", t0,
+                      f" ({int(mask.sum())} texels, {len(runs)} runs)")
+            texels = TexelRuns(runs)
+        else:
+            uvs, tex_idx, gb_pos, mask = uvatlas.uv_unwrap_and_rasterize(
+                v, f, texture_reso)
+            t0 = tick(save_dir, "uv atlas + raster", t0,
+                      f" ({int(mask.sum())} texels)")
+            if wire != "f32":
+                lo = np.asarray(new_aabb[:3], np.float32)
+                span = np.asarray(new_aabb[3:], np.float32) - lo
+                texels = native.mask_compact_q16(
+                    gb_pos.reshape(-1, 3), mask.reshape(-1), lo, span)
+            else:
+                texels = gb_pos.reshape(-1, 3)[mask.reshape(-1)]
+        return {"v": v, "f": f, "uvs": uvs, "tex_idx": tex_idx,
+                "mask": mask, "texels": texels}
+
+    def _texmesh_assemble(self, save_dir: str, cpu: Dict, texel_handle,
+                          texture_reso: int, mtl_path, file_format: str,
+                          tick) -> None:
+        """The export tail: fetch the texel chunks, dilate seams, write."""
+        t0 = time.perf_counter()
+        fetch, N = texel_handle
+        preds = np.concatenate(fetch.wait(), axis=0)[:N]
+        t0 = tick(save_dir, "texel decode", t0)
+        mask = cpu["mask"]
+        v, f, uvs, tex_idx = cpu["v"], cpu["f"], cpu["uvs"], cpu["tex_idx"]
+        # scatter + 3x3 seam dilation + flip in one C++ pass
+        tex_img = native.tex_assemble(preds, mask, texture_reso)
+        t0 = tick(save_dir, "texture assembly", t0)
+
+        if self.acfg.data_type == "sdftex":
+            if file_format == "obj":
+                mtl_str = (meshio.read_material_params_from_mtl(mtl_path)
+                           if mtl_path else None)
+                meshio.save_mesh_with_tex(
+                    os.path.join(save_dir, "object.obj"),
+                    np.asarray(v), uvs, np.asarray(f), tex_idx, tex_img,
+                    mtl_str=mtl_str,
+                    Kd=self.meta.get("Kd", [1, 1, 1]),
+                    Ka=self.meta.get("Ka", [0, 0, 0]),
+                    Ks=self.meta.get("Ks", [0.4, 0.4, 0.4]),
+                    Ns=self.meta.get("Ns", 10))
+            elif file_format == "glb":
+                meshio.save_mesh_with_tex_to_glb(
+                    os.path.join(save_dir, "object.glb"),
+                    np.asarray(v), uvs, np.asarray(f), tex_idx, tex_img)
+            else:
+                raise NotImplementedError(file_format)
+        elif self.acfg.data_type == "sdfpbr":
+            meshio.save_mesh_with_pbr(
+                os.path.join(save_dir, "object.obj"),
+                np.asarray(v), uvs, np.asarray(f), tex_idx,
+                tex_img[..., :3], tex_img[..., 3], tex_img[..., 4],
+                tex_img[..., 5:])
+        else:
+            raise NotImplementedError(self.acfg.data_type)
+        tick(save_dir, "export", t0)

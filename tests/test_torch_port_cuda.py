@@ -441,3 +441,94 @@ def test_k1_bf16_act_is_exact(card, C):
         v = x.float() * a[:, None, None, :] + b[:, None, None, :]
         want = (v * torch.sigmoid(v)).to(torch.bfloat16)
         assert torch.equal(y, want)
+
+
+# ---------------------------------------------------------------------------
+# The mesh path's device work: the sparse wire, the int8 grid, the texels
+# ---------------------------------------------------------------------------
+
+def _sphere_q(shape, radius=0.55, thr=0.0234375):
+    axes = [torch.linspace(-1, 1, s, dtype=torch.float64) for s in shape]
+    x, y, z = torch.meshgrid(*axes, indexing="ij")
+    v = torch.clamp((x * x + y * y + z * z).sqrt() - radius, -thr, thr)
+    return torch.clamp(torch.floor(v * 127.0 / thr), -128, 127).to(
+        torch.int8)
+
+
+@pytest.mark.parametrize("shape", [(17, 23, 9), (60, 52, 44),
+                                   (184, 256, 184)])
+def test_sparse_encode_on_card_equals_cpu(card, shape):
+    """The block order of the stable argsort, the packed signs and the
+    block values: the card's wire equals the CPU's exactly."""
+    from sin3dm_tpu_torch.ops import sparse_grid as sg
+    q = _sphere_q(shape)
+    want = sg.encode(q)
+    got = sg.encode(q.to(card))
+    n = int(want.count)
+    assert int(got.count) == n > 0
+    assert torch.equal(got.signs.cpu(), want.signs)
+    assert torch.equal(got.block_ids.cpu()[:n], want.block_ids[:n])
+    assert torch.equal(got.block_vals.cpu()[:n], want.block_vals[:n])
+
+
+def _committed_trainer(device):
+    import os
+    from sin3dm_tpu_torch.models.autoencoder import AEConfig
+    from sin3dm_tpu_torch.training.ae import AETrainer
+    enc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "checkpoints", "towerruins", "encoding")
+    tr = AETrainer(enc, AEConfig(), device)
+    tr.load_ckpt("final")
+    return tr, os.path.join(enc, "feat.npz")
+
+
+@pytest.mark.parametrize("bf16", ["0", "1"])
+def test_int8_grid_and_texels_on_card(card, bf16, monkeypatch):
+    """The committed AE on the tag's feat.npz at reso 64 on the card and on
+    the CPU (fp32, or bf16 operands): the card's int8 grid exactly numpy's
+    floor(clip(fp32 / q, -1, 1) * 127) of its own fp32 grid (a true
+    division), the int8 grids a bucket apart at most 1e-3 of the voxels
+    with no sign flip, the fp16 upload of the u16 run starts widened
+    exactly, and the texels of one atlas within 1 (fp32) or 2 (bf16, fewer
+    than 1 % by more than 1)."""
+    import numpy as np
+    from sin3dm_tpu_torch.core.triplane import load_triplane_npz
+    from sin3dm_tpu_torch.geometry import meshproc, uvatlas
+    from sin3dm_tpu_torch.models import autoencoder as ae
+    from sin3dm_tpu_torch.training.ae import _u16_to_device
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", bf16)
+    monkeypatch.setenv("SIN3DM_SPARSE_GRID", "0")
+    cd, feat_path = _committed_trainer(card)
+    hd, _ = _committed_trainer("cpu")
+    feat = load_triplane_npz(feat_path)
+    aabb = cd._feat_aabb(feat)
+    quant = float(cd.meta["threshold"])
+    gc = cd._dispatch_geo_grid(feat, 64, aabb).fetch.wait()[0]
+    gh = hd._dispatch_geo_grid(feat, 64, aabb).fetch.wait()[0]
+    f32 = ae.decode_grid_dense(cd.params, cd.acfg, *cd._planes(feat),
+                               gc.shape, geo_only=True)[..., 0].cpu().numpy()
+    one = np.float32(1.0)
+    np.testing.assert_array_equal(gc, np.floor(
+        np.clip(f32 / np.float32(quant), -one, one) * np.float32(127.0)
+    ).astype(np.int8))
+    d = np.abs(gc.astype(np.int32) - gh.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    assert ((gc < 0) != (gh < 0)).sum() == 0
+    u = np.arange(65536, dtype=np.uint16).reshape(-1, 4)
+    assert torch.equal(_u16_to_device(u, card).cpu(),
+                       torch.from_numpy(u.astype(np.int32)))
+    v, f = meshproc.sdfgrid_to_mesh((gh.astype(np.float32) + 0.5)
+                                    * (quant / 127.0))
+    box = aabb[3:].max() - aabb[:3].min()
+    v, f = meshproc.mesh_decimation(v / 64 * box + aabb[:3], f, 2000)
+    _, _, mask, runs = uvatlas.uv_unwrap_and_rasterize_runs(v, f, 256)
+    fc, n = cd._dispatch_texels_runs(feat, runs, aabb)
+    fh, _ = hd._dispatch_texels_runs(feat, runs, aabb)
+    tc = np.concatenate(fc.wait())[:n].astype(np.int32)
+    th = np.concatenate(fh.wait())[:n].astype(np.int32)
+    dt = np.abs(tc - th)
+    assert n == int(mask.sum()) > 1000
+    if bf16 == "0":
+        assert dt.max() <= 1 and (dt > 0).mean() < 0.01
+    else:
+        assert dt.max() <= 2 and (dt > 1).mean() < 0.01

@@ -1,6 +1,7 @@
-"""The slice as a whole: the port's `cli.sample --vox` on the committed
-towerruins tag, on the CPU at a small size, against the JAX package; and
-the port's guards (no JAX import, the card by default, no fallback)."""
+"""The slice as a whole: the port's `cli.sample` on the committed
+towerruins tag, on the CPU at a small size, to voxel grids (`--vox`) and
+to textured meshes, against the JAX package; and the port's guards (no
+JAX import, the card by default, no fallback)."""
 
 import os
 import shutil
@@ -114,13 +115,20 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got[settled], want[settled])
 
 
-# the modules on the stats-chain, fused-act and --inpaint paths, named
-# so that the walk cannot miss them
+# the modules of the stats-chain, fused-act, --inpaint and mesh paths,
+# named so that the walk cannot miss them
 CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.models.unet",
            "sin3dm_tpu_torch.diffusion.gaussian",
            "sin3dm_tpu_torch.diffusion.sampling",
-           "sin3dm_tpu_torch.cli.sample"}
+           "sin3dm_tpu_torch.cli.sample", "sin3dm_tpu_torch.core.gridsample",
+           "sin3dm_tpu_torch.models.autoencoder",
+           "sin3dm_tpu_torch.ops.sparse_grid",
+           "sin3dm_tpu_torch.geometry.native",
+           "sin3dm_tpu_torch.geometry.meshproc",
+           "sin3dm_tpu_torch.geometry.uvatlas",
+           "sin3dm_tpu_torch.geometry.meshio",
+           "sin3dm_tpu_torch.training.ae", "sin3dm_tpu_torch.core.config"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -133,9 +141,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"assert not set({sorted(CHANGED)}) - set(names), names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'sin3dm_tpu' or "
-        "m.startswith('sin3dm_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'sin3dm_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -211,7 +218,106 @@ def test_cli_inpaint_cpu_keeps_y0_outside_the_region(tmp_path,
                                            "r32_voxel.npz"))
 
 
-def test_mesh_path_is_a_later_slice(tmp_path):
-    argv = [a for a in _argv(tmp_path) if a != "--vox"]
-    with pytest.raises(NotImplementedError, match="mesh path"):
-        cli.main(argv)
+MESH = ["--texreso", "128", "--n_faces", "500"]
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The CLI's mesh path (no --vox) for 2 samples, with --pipeline_chunk
+    2 and 1, fp32 UNet and decode heads: {chunk: (output dir, main's
+    result)}."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SIN3DM_DECODE_BF16", "0")
+    mp.setenv("SIN3DM_SAMPLE_DTYPE", "train")
+    runs = {}
+    try:
+        for chunk in (2, 1):
+            out = tmp_path_factory.mktemp(f"mesh_chunk{chunk}")
+            argv = [a for a in _argv(out, *MESH, "--n_samples", "2",
+                                     "--pipeline_chunk", str(chunk))
+                    if a != "--vox"]
+            runs[chunk] = (out, cli.main(argv))
+    finally:
+        mp.undo()
+    return runs
+
+
+def _faces(path):
+    with open(path) as fh:
+        return sum(1 for ln in fh if ln.startswith("f "))
+
+
+def test_mesh_path_is_a_later_slice(mesh_runs):
+    """The mesh path, once a later slice, runs: per sample feat.npz,
+    voxel.npz and a textured object.obj/.mtl/.png, and a stage log that
+    covers the chain, the grid, the geometry, the texels and the
+    export."""
+    from PIL import Image
+    out, res = mesh_runs[2]
+    assert len(res["paths"]) == 2
+    for j in range(2):
+        d = out / f"{j:03d}"
+        for name in ("feat.npz", "voxel.npz", "object.obj", "object.mtl",
+                     "object.png"):
+            assert (d / name).exists(), name
+        with np.load(d / "voxel.npz") as v:
+            grid = v["vox_grid"]
+        assert grid.dtype == bool and grid.shape == (22, 32, 22)
+        assert 0.0 < grid.mean() < 0.5
+        assert 0 < _faces(d / "object.obj") <= 500
+        assert "map_Kd object.png" in (d / "object.mtl").read_text()
+        img = np.asarray(Image.open(d / "object.png"))
+        assert img.shape == (128, 128, 3) and img.dtype == np.uint8
+        stages = {e["stage"] for e in res["stages"] if e["dir"] == str(d)}
+        assert {"chain", "sdf grid", "voxel.npz", "marching cubes",
+                "decimation", "uv atlas + raster", "texel dispatch",
+                "texel decode", "texture assembly", "export"} <= stages
+
+
+def test_mesh_path_chunks_and_jax_face_count(mesh_runs):
+    """--pipeline_chunk 1 and 2 draw the same samples: sample j's noise
+    depends only on (seed, j).  The UNet's CPU kernels sum in another
+    order at batch 1 than at batch 2 (3e-6 apart in fp32, 4e-2 in bf16),
+    so the feats agree to 1e-4 of their scale, not bit for bit.  JAX's
+    decode_texmesh on the port's feat.npz gives the port's face count."""
+    for j in range(2):
+        with np.load(mesh_runs[1][0] / f"{j:03d}" / "feat.npz") as a, \
+                np.load(mesh_runs[2][0] / f"{j:03d}" / "feat.npz") as b:
+            for k in a.files:
+                scale = np.abs(b[k]).max()
+                assert np.abs(a[k] - b[k]).max() <= 1e-4 * scale
+    out = mesh_runs[2][0]
+    trainer = AETrainer(os.path.join(TAG, "encoding"), jae.AEConfig(),
+                        AETrainerConfig())
+    trainer.load_ckpt("final")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SIN3DM_DECODE_BF16", "0")
+        trainer.decode_texmesh(str(out / "jax"),
+                               jload(str(out / "000" / "feat.npz")), 32,
+                               n_faces=500, texture_reso=128)
+    assert _faces(out / "jax" / "object.obj") == \
+        _faces(out / "000" / "object.obj")
+
+
+def test_mesh_decode_threads_write_what_generate_wrote(mesh_runs, tmp_path,
+                                                       monkeypatch):
+    """The standalone mesh decode (`cli.decode` without --vox: one thread
+    per sample, device dispatch under the trainer's lock, one export
+    worker) on generate's feat.npz files writes the same object files."""
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    out = mesh_runs[2][0]
+    paths = []
+    for j in range(2):
+        d = tmp_path / f"{j:03d}"
+        d.mkdir()
+        shutil.copy(out / f"{j:03d}" / "feat.npz", d / "feat.npz")
+        paths.append(str(d / "feat.npz"))
+    argv = [a for a in _argv(tmp_path, *MESH) if a != "--vox"]
+    cli.decode(cli.cfgmod.sample_args(argv), paths)
+    for j in range(2):
+        for name in ("object.obj", "object.mtl", "object.png"):
+            assert (tmp_path / f"{j:03d}" / name).read_bytes() == \
+                (out / f"{j:03d}" / name).read_bytes(), name
+        with np.load(tmp_path / f"{j:03d}" / "voxel.npz") as a, \
+                np.load(out / f"{j:03d}" / "voxel.npz") as b:
+            np.testing.assert_array_equal(a["vox_grid"], b["vox_grid"])
