@@ -22,7 +22,7 @@ the args.json dtype) and bf16 operands in the decode heads
 (`models/unet.py`).  `--inpaint` (DDIM only) keeps the tag's own
 `feat.npz` (or `--inpaint_feat`) outside the box `--inpaint_region` and
 regenerates inside it.  Data-parallel and spatial sampling are later
-slices.
+slices (multi-device).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def resolve_device(name: str, index: int = 0) -> torch.device:
 
 
 def _check_slice(args) -> None:
-    where = "not ported yet (ROADMAP.md, A: sampling options)"
+    where = "not ported yet (ROADMAP.md, A: multi-device)"
     if int(getattr(args, "sample_devices", 1)) != 1:
         raise NotImplementedError(
             f"--sample_devices: data-parallel sampling is {where}")

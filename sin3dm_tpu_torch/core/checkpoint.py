@@ -7,13 +7,20 @@ lists in order) and `path` the `/`-joined keys.  An optional `__meta__`
 entry holds utf-8 JSON bytes.  Trees here are nested dicts and lists of
 numpy arrays, so the JAX side's `load_pytree` reads what `save_tree`
 writes when given a same-shaped `like` tree.
+
+The diffusion trainer's optimiser state is written under the leaf paths
+that JAX's `save_pytree` gives `optax.adamw(...).init(params)`
+(`adamw_tree`): `0/.count` (int32), `0/.mu/<param path>`,
+`0/.nu/<param path>` and, where the learning rate is a schedule,
+`2/.count` (int32, the schedule's count).  The layout is written out
+here, not derived from optax.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -80,6 +87,51 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
+
+
+def leaves_with_paths(tree) -> List[Tuple[str, Any]]:
+    """[(path, leaf)] in JAX's flatten order (the container's order)."""
+    return list(_flatten(tree))
+
+
+def unflatten_like(like, leaves) -> Any:
+    """A tree of `like`'s structure holding `leaves` in flatten order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+    return build(like)
+
+
+def adamw_tree(count: int, mu, nu, sched_count: Optional[int] = None
+               ) -> Dict:
+    """The optimiser state in the leaf layout of JAX's
+    `optax.adamw(...).init(params)` (see the module doc)."""
+    tree = {"0": {".count": np.asarray(count, np.int32), ".mu": mu,
+                  ".nu": nu}}
+    if sched_count is not None:
+        tree["2"] = {".count": np.asarray(sched_count, np.int32)}
+    return tree
+
+
+def adamw_from_tree(tree) -> Tuple[int, Any, Any, Optional[int]]:
+    """(count, mu, nu, schedule count or None) from a tree that
+    `load_tree` read from an `adamw_tree` file; raises ValueError on
+    another layout."""
+    if isinstance(tree, list):        # a root of "0" alone is listified
+        tree = {str(i): v for i, v in enumerate(tree)}
+    adam = tree.get("0") if isinstance(tree, dict) else None
+    if not isinstance(adam, dict) or set(adam) != {".count", ".mu", ".nu"} \
+            or not set(tree) <= {"0", "2"}:
+        raise ValueError("not an adamw optimiser state: top-level keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else tree}")
+    sched = tree.get("2")
+    return (int(adam[".count"]), adam[".mu"], adam[".nu"],
+            None if sched is None else int(sched[".count"]))
 
 
 def save_tree(path: str, tree: Any, meta: Optional[Dict] = None) -> None:

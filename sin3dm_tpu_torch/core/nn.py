@@ -5,17 +5,68 @@ Parameters keep JAX's layouts: conv weights `[kh, kw, Cin, Co]`, linear
 weights `[in, out]`.  Semantics follow the JAX functions line for line:
 GroupNorm32 statistics in float32, the sinusoidal embedding cos-first,
 bilinear resizes with half-pixel centres and no antialias, 2x average
-pooling VALID (an odd size drops its last row/column).
+pooling VALID (an odd size drops its last row/column).  Every op is
+differentiable (no in-place write into a tensor autograd saved), so the
+UNet's training forward runs through them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+
+# ---------------------------------------------------------------------------
+# Initialisers (torch's default Conv/Linear init: U(+-1/sqrt(fan_in)) for
+# weight and bias), each drawn from an explicit generator
+# ---------------------------------------------------------------------------
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=torch.float32,
+                       device=gen.device).uniform_(-bound, bound,
+                                                   generator=gen)
+
+
+def torch_conv_init(gen: torch.Generator, kshape: Sequence[int],
+                    with_bias: bool = True) -> Dict:
+    """kshape HWIO (spatial..., in, out); fan_in = in * prod(spatial)."""
+    *spatial, cin, cout = kshape
+    bound = 1.0 / math.sqrt(cin * int(math.prod(spatial)))
+    w = _uniform(gen, kshape, bound)
+    if not with_bias:
+        return {"w": w}
+    return {"w": w, "b": _uniform(gen, (cout,), bound)}
+
+
+def torch_linear_init(gen: torch.Generator, cin: int, cout: int) -> Dict:
+    """Weight `[cin, cout]` (y = x @ w + b), both U(+-1/sqrt(cin))."""
+    bound = 1.0 / math.sqrt(cin)
+    return {"w": _uniform(gen, (cin, cout), bound),
+            "b": _uniform(gen, (cout,), bound)}
+
+
+def zero_conv_init(kshape: Sequence[int], device="cpu") -> Dict:
+    """A zero-initialised conv (the reference's `zero_module`)."""
+    return {"w": torch.zeros(tuple(kshape), device=device),
+            "b": torch.zeros((kshape[-1],), device=device)}
+
+
+def group_norm_init(channels: int, device="cpu") -> Dict:
+    return {"g": torch.ones((channels,), device=device),
+            "b": torch.zeros((channels,), device=device)}
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dims."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+# ---------------------------------------------------------------------------
+# Ops
+# ---------------------------------------------------------------------------
 
 def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
@@ -36,8 +87,9 @@ def _nhwc(x):
 def conv2d(p: Dict, x: torch.Tensor, padding="SAME") -> torch.Tensor:
     """Stride-1 conv of `[B, H, W, C]` with an HWIO weight.  1x1 convs
     are a dot over the channel axis, as on the JAX side; other sizes go
-    to `F.conv2d` (the 5x5 AE convs; the UNet's 3x3 convs take the
-    hand-written kernel in `ops/fused_conv.py` instead)."""
+    to `F.conv2d` (the 5x5 AE convs and the UNet's training forward; the
+    sampler's 3x3 convs take the hand-written kernel in
+    `ops/fused_conv.py` instead)."""
     w = p["w"].to(x.dtype)
     kh, kw = w.shape[0], w.shape[1]
     if kh == 1 and kw == 1:
@@ -65,13 +117,20 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, gamma=None,
     return y
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The norms' statistics dtype: fp32, or fp64 for an fp64 x."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _group_stats(x: torch.Tensor, num_groups: int, eps: float):
-    """fp32 per-group (mean, rstd) of `[B, H, W, C]`, each `[B, g]`."""
+    """Per-group (mean, rstd) of `[B, H, W, C]`, each `[B, g]`, in
+    `_stats_dtype(x)`."""
     *lead, H, W, C = x.shape
     if C % num_groups != 0:
         raise ValueError(f"GroupNorm32 needs channels divisible by "
                          f"{num_groups}, got {C}")
-    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).float()
+    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).to(
+        _stats_dtype(x))
     dims = (-4, -3, -1)
     mean = xg.mean(dim=dims)
     var = ((xg - mean[..., None, None, :, None]) ** 2).mean(dim=dims)
@@ -80,10 +139,12 @@ def _group_stats(x: torch.Tensor, num_groups: int, eps: float):
 
 def group_norm32(p: Dict, x: torch.Tensor, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm(32, C) computed in float32, cast back to x.dtype."""
+    """GroupNorm(32, C) computed in float32 (float64 for an fp64 x), cast
+    back to x.dtype."""
     *lead, H, W, C = x.shape
     mean, rstd = _group_stats(x, num_groups, eps)
-    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).float()
+    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).to(
+        _stats_dtype(x))
     xg = (xg - mean[..., None, None, :, None]) * rstd[..., None, None, :,
                                                       None]
     y = xg.reshape(*lead, H, W, C) * p["g"] + p["b"]
@@ -111,9 +172,9 @@ def _fold_coeffs(p: Dict, mean: torch.Tensor, rstd: torch.Tensor, C: int,
     B = p["b"] - mean.repeat_interleave(rep, dim=-1) * A
     if film is not None:
         scale, shift = film                          # [B, 1, 1, C]
-        one_p = 1.0 + scale.float().reshape(A.shape)
+        one_p = 1.0 + scale.to(A.dtype).reshape(A.shape)
         A = A * one_p
-        B = B * one_p + shift.float().reshape(A.shape)
+        B = B * one_p + shift.to(A.dtype).reshape(A.shape)
     return A, B
 
 
@@ -178,14 +239,15 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
-                       max_period: float = 10000.0) -> torch.Tensor:
+                       max_period: float = 10000.0,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Sinusoidal embeddings, cos first.  timesteps `[N]` -> `[N, dim]`
-    float32."""
+    in `dtype`."""
     half = dim // 2
     freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32,
+                      * torch.arange(half, dtype=dtype,
                                      device=timesteps.device) / half)
-    args = timesteps.float()[:, None] * freqs[None]
+    args = timesteps.to(dtype)[:, None] * freqs[None]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)

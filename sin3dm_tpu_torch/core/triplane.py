@@ -57,6 +57,13 @@ def _zip_op(op, a: Triplane, b) -> Triplane:
     return Triplane(op(a.xy, b), op(a.xz, b), op(a.yz, b))
 
 
+def randn_like(gen: torch.Generator, t: Triplane) -> Triplane:
+    """Per-plane standard normal noise of t's shapes and dtype, drawn from
+    `gen` (xy, then xz, then yz) on the generator's device."""
+    return t.map(lambda p: torch.randn(p.shape, generator=gen,
+                                       dtype=p.dtype, device=gen.device))
+
+
 def save_triplane_npz(path: str, t: Triplane) -> None:
     """Write one triplane (no batch dim, or a batch of 1) as the
     reference's channels-first `feat.npz`."""

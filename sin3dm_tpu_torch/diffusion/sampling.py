@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.rng import step_generator
 from ..core.triplane import Triplane
 from .gaussian import DiffusionConfig, ModelFn, ddim_sample_step, \
     p_sample_step
@@ -27,14 +28,8 @@ def sample_generators(seed: int, start: int, batch: int,
                       device) -> List[torch.Generator]:
     """One generator per global sample index start..start+batch-1, each
     seeded from (seed, index) through numpy's SeedSequence."""
-    gens = []
-    for j in range(start, start + batch):
-        state = np.random.SeedSequence([int(seed), j]).generate_state(
-            2, np.uint32)
-        g = torch.Generator(device=device)
-        g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
-        gens.append(g)
-    return gens
+    return [step_generator(seed, j, device)
+            for j in range(start, start + batch)]
 
 
 def randn_per_sample(gens: Sequence[torch.Generator], channels: int,

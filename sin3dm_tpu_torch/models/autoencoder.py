@@ -173,6 +173,22 @@ def decode_points(params: Dict, cfg: AEConfig, geo_planes: Triplane,
     return torch.cat([sdf, _tex_heads(params, cfg, h_tex)], dim=-1)
 
 
+def grid_slab_features(planes: Triplane, grid_res: Tuple[int, int, int],
+                       slab: int = 8):
+    """Yields (x-slice, `[rows, C]` features) per x-slab of `slab` rows of
+    the dense grid: the three planes (`[1, ., ., C]`) resized to the grid
+    and summed at each point, the heads' input in `decode_grid_dense`."""
+    Nx, Ny, Nz = grid_res
+    g_xy = nn.resize_bilinear(planes.xy[0], (Nx, Ny))
+    g_xz = nn.resize_bilinear(planes.xz[0], (Nx, Nz))
+    g_yz = nn.resize_bilinear(planes.yz[0], (Ny, Nz))
+    for x0 in range(0, Nx, slab):
+        sl = slice(x0, min(x0 + slab, Nx))
+        h = (g_xy[sl][:, :, None, :] + g_xz[sl][:, None, :, :]
+             + g_yz[None, :, :, :])                      # [s, Ny, Nz, C]
+        yield sl, h.reshape(-1, h.shape[-1])
+
+
 @torch.no_grad()
 def decode_grid_dense(params: Dict, cfg: AEConfig, geo_planes: Triplane,
                       tex_planes, grid_res: Tuple[int, int, int],
@@ -190,17 +206,8 @@ def decode_grid_dense(params: Dict, cfg: AEConfig, geo_planes: Triplane,
     type), else fp32."""
     Nx, Ny, Nz = grid_res
     use_tex = cfg.use_tex and not geo_only
-
-    def plane_grids(planes: Triplane):
-        return (nn.resize_bilinear(planes.xy[0], (Nx, Ny)),
-                nn.resize_bilinear(planes.xz[0], (Nx, Nz)),
-                nn.resize_bilinear(planes.yz[0], (Ny, Nz)))
-
-    g_xy, g_xz, g_yz = plane_grids(geo_planes)
-    if use_tex:
-        t_xy, t_xz, t_yz = plane_grids(tex_planes)
     n_out = 1 + (cfg.tex_channels if use_tex else 0)
-    dev = g_xy.device
+    dev = geo_planes.xy.device
     if quant_scale is not None:
         dtype = torch.int8
         q = torch.full((), float(quant_scale), dtype=torch.float32,
@@ -208,19 +215,14 @@ def decode_grid_dense(params: Dict, cfg: AEConfig, geo_planes: Triplane,
     else:
         dtype = out_dtype or torch.float32
     out = torch.empty((Nx, Ny, Nz, n_out), dtype=dtype, device=dev)
-    for x0 in range(0, Nx, slab):
-        sl = slice(x0, min(x0 + slab, Nx))
-        h_geo = (g_xy[sl][:, :, None, :] + g_xz[sl][:, None, :, :]
-                 + g_yz[None, :, :, :])                  # [s, Ny, Nz, C]
-        s = h_geo.shape[0]
-        res = _head_apply(cfg, params["geo_decoder"],
-                          h_geo.reshape(-1, h_geo.shape[-1]))
+    tex_slabs = (grid_slab_features(tex_planes, grid_res, slab) if use_tex
+                 else None)
+    for sl, h_geo in grid_slab_features(geo_planes, grid_res, slab):
+        res = _head_apply(cfg, params["geo_decoder"], h_geo)
         if use_tex:
-            h_tex = (t_xy[sl][:, :, None, :] + t_xz[sl][:, None, :, :]
-                     + t_yz[None, :, :, :])
-            res = torch.cat([res, _tex_heads(
-                params, cfg, h_tex.reshape(-1, h_tex.shape[-1]))], dim=-1)
-        res = res.reshape(s, Ny, Nz, n_out)
+            res = torch.cat([res, _tex_heads(params, cfg,
+                                             next(tex_slabs)[1])], dim=-1)
+        res = res.reshape(sl.stop - sl.start, Ny, Nz, n_out)
         if quant_scale is not None:
             res = torch.floor(torch.clamp(res / q, -1.0, 1.0) * 127.0)
         out[sl] = res.to(dtype)

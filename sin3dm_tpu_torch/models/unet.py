@@ -1,22 +1,29 @@
-"""Triplane UNet denoiser, inference (counterpart of
-`sin3dm_tpu/models/unet.py`).
+"""Triplane UNet denoiser (counterpart of `sin3dm_tpu/models/unet.py`).
 
-Functional: `unet_apply(params, cfg, x, timesteps)` over a parameter dict
-in JAX's layout (see `compat/from_jax.py`), where each 3x3 conv may also
-hold "k1", its weights packed once for the bf16 kernel
-(`ops.pack_params`).  Each triplane conv is three
-per-plane 2D convs; with rollout every plane's input is concatenated
-with the broadcast axis-means of the other two planes.  That concat is
-never built: by linearity the broadcast channels' 3x3 contribution is a
-3-tap 1D conv of the un-broadcast mean vectors plus border fix-ups
-(`_colvar_vecs` / `_rowvar_vecs`), which the 3x3 kernel K1
-(`ops/fused_conv.py`) adds in its epilogue.  Every 3x3 conv of the UNet
-goes through K1, in bf16 and in fp32 alike, a triplane conv's three
-planes in one call (`conv3x3_rollout_triplane`: one launch in bf16).
+Functional, over a parameter dict in JAX's layout (`init_unet`, or
+`compat/from_jax.py`), where each 3x3 conv may also hold "k1", its
+weights packed once for the bf16 kernel (`ops.pack_params`).  Each
+triplane conv is three per-plane 2D convs; with rollout every plane's
+input is concatenated with the broadcast axis-means of the other two
+planes.  That concat is never built: by linearity the broadcast channels'
+3x3 contribution is a 3-tap 1D conv of the un-broadcast mean vectors plus
+border fix-ups (`_colvar_vecs` / `_rowvar_vecs`).  Two forwards:
+
+- `unet_apply`, the sampler's, under `torch.no_grad`: every 3x3 conv goes
+  through the kernel K1 (`ops/fused_conv.py`), which adds the fix-ups in
+  its epilogue, in bf16 and in fp32 alike, a triplane conv's three planes
+  in one call (`conv3x3_rollout_triplane`: one launch in bf16).
+- `unet_train_apply`, the differentiable one, JAX's `fused_conv=False`
+  route: the self part of each 3x3 conv as `F.conv2d` (cuDNN on the
+  card), plus the fix-ups as `_colvar_contrib` / `_rowvar_contrib`, plus
+  the bias; `use_checkpoint` recomputes each resblock in the backward
+  (`torch.utils.checkpoint`, as JAX's `jax.checkpoint`).  K1 has no
+  backward and refuses a call that autograd would record.
 
 Sampling numerics follow the JAX package's accelerator defaults: a bf16
 torso with `fast_norm` (fp32 GroupNorm statistics, apply in bf16); the
-chain state stays fp32.  Training arrives in a later slice.
+chain state stays fp32.  Training takes the `args.json` dtype: fp32, or
+with `use_fp16` a bf16 torso with `fast_norm` over fp32 parameters.
 
 Two opt-in configurations of the resblocks, read from the environment at
 every forward as the JAX package reads them (default "0"; fused-act wins
@@ -41,9 +48,10 @@ where both are set).  The port's conditions are JAX's with
 from __future__ import annotations
 
 import os
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import nn
 from ..core.triplane import Triplane
@@ -63,6 +71,69 @@ class UNetConfig(NamedTuple):
     rollout: bool = True              # unet_small vs unet_raw
     compute_dtype: torch.dtype = torch.float32
     fast_norm: bool = False
+    use_checkpoint: bool = False      # training forward only
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.model_channels * 4
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _tconv_init(gen: torch.Generator, cin: int, cout: int, ksize: int,
+                rollout: bool, zero: bool = False) -> Dict:
+    """Three per-plane convs; rollout triples the input channels."""
+    kshape = (ksize, ksize, cin * 3 if rollout else cin, cout)
+    if zero:
+        return {p: nn.zero_conv_init(kshape, gen.device) for p in PLANES}
+    return {p: nn.torch_conv_init(gen, kshape) for p in PLANES}
+
+
+def _tnorm_init(channels: int, device) -> Dict:
+    return {p: nn.group_norm_init(channels, device) for p in PLANES}
+
+
+def _resblock_init(gen: torch.Generator, cin: int, cout: int, emb_dim: int,
+                   use_scale_shift: bool, rollout: bool) -> Dict:
+    p = {
+        "in_norm": _tnorm_init(cin, gen.device),
+        "in_conv": _tconv_init(gen, cin, cout, 3, rollout),
+        "emb": nn.torch_linear_init(
+            gen, emb_dim, 2 * cout if use_scale_shift else cout),
+        "out_norm": _tnorm_init(cout, gen.device),
+        "out_conv": _tconv_init(gen, cout, cout, 3, rollout, zero=True),
+    }
+    if cin != cout:
+        p["skip"] = _tconv_init(gen, cin, cout, 1, rollout=False)
+    return p
+
+
+def init_unet(gen: torch.Generator, cfg: UNetConfig) -> Dict:
+    """The parameter tree of JAX's `init_unet` (the same keys, list
+    positions, shapes and zero-initialised out convs), fp32 on the
+    generator's device, drawn from `gen` in construction order."""
+    mc = cfg.model_channels
+    emb_dim = cfg.time_embed_dim
+    params: Dict = {"time_embed": {
+        "l1": nn.torch_linear_init(gen, mc, emb_dim),
+        "l2": nn.torch_linear_init(gen, emb_dim, emb_dim)}}
+    input_ch = int(cfg.channel_mult[0] * mc)
+    params["in_conv"] = _tconv_init(gen, cfg.in_channels, input_ch, 1,
+                                    rollout=False)
+    blocks: List[Dict] = [
+        _resblock_init(gen, cin, cout, emb_dim, cfg.use_scale_shift_norm,
+                       cfg.rollout) for cin, cout in _block_widths(cfg)]
+    n, levels = cfg.num_res_blocks, len(cfg.channel_mult)
+    params["down"] = [blocks[i * n:(i + 1) * n] for i in range(levels)]
+    params["up"] = [blocks[(levels + i) * n:(levels + i + 1) * n]
+                    for i in range(levels)]
+    params["out"] = {
+        "norm": _tnorm_init(input_ch, gen.device),
+        "conv": _tconv_init(gen, input_ch, cfg.out_channels, 1,
+                            rollout=False, zero=True)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +261,69 @@ def _tconv_apply(p: Dict, t: Triplane, rollout: bool,
 
 
 # ---------------------------------------------------------------------------
+# Rollout conv, differentiable (the training forward)
+# ---------------------------------------------------------------------------
+
+def _spread(v3: torch.Tensor, n: int) -> torch.Tensor:
+    """`[B, L, 3, Co]` (first, interior, last) -> `[B, L, n, Co]`: entry 0
+    at index 0, entry 2 at index n-1, entry 1 between (n >= 2)."""
+    B, L, _, Co = v3.shape
+    return torch.cat([v3[:, :, :1], v3[:, :, 1:2].expand(B, L, n - 2, Co),
+                      v3[:, :, 2:]], dim=2)
+
+
+def _colvar_contrib(vec: torch.Tensor, kb: torch.Tensor,
+                    H: int) -> torch.Tensor:
+    """`[B, H, W, Co]` 3x3 contribution of an image constant along rows
+    (vec `[B, W, C]` broadcast over H): row 0 takes s_top, row H-1 s_bot,
+    the rest s_full."""
+    return _spread(_colvar_vecs(vec, kb), H).permute(0, 2, 1, 3)
+
+
+def _rowvar_contrib(vec: torch.Tensor, kb: torch.Tensor,
+                    W: int) -> torch.Tensor:
+    """The same for an image constant along columns (vec `[B, H, C]`
+    broadcast over W)."""
+    return _spread(_rowvar_vecs(vec, kb), W)
+
+
+def _tconv_apply_rollout_train(p: Dict, t: Triplane) -> Triplane:
+    """Rollout 3x3 conv without the 3x-channel concat, differentiable:
+    `F.conv2d` of each plane's own channels, then the col- and
+    row-varying contributions, then the bias, in t's dtype."""
+    C = t.channels
+    m_yz_d = t.yz.mean(dim=-2)   # [B, W, C]
+    m_xz_d = t.xz.mean(dim=-2)   # [B, H, C]
+    m_xy_w = t.xy.mean(dim=-2)   # [B, H, C]
+    m_yz_w = t.yz.mean(dim=-3)   # [B, D, C]
+    m_xy_h = t.xy.mean(dim=-3)   # [B, W, C]
+    m_xz_h = t.xz.mean(dim=-3)   # [B, D, C]
+
+    def one(pp, x, col_vec, row_vec, col_first: bool):
+        w = pp["w"]
+        cs, rs = (C, 2 * C) if col_first else (2 * C, C)
+        y = nn.conv2d({"w": w[:, :, :C]}, x)
+        y = y + _colvar_contrib(col_vec, w[:, :, cs:cs + C], x.shape[1])
+        y = y + _rowvar_contrib(row_vec, w[:, :, rs:rs + C], x.shape[2])
+        if "b" in pp:
+            y = y + pp["b"].to(y.dtype)
+        return y
+
+    # the block order per plane of `_tconv_apply_rollout_fast`
+    return Triplane(one(p["xy"], t.xy, m_yz_d, m_xz_d, True),
+                    one(p["xz"], t.xz, m_yz_w, m_xy_w, False),
+                    one(p["yz"], t.yz, m_xz_h, m_xy_h, False))
+
+
+def _tconv_apply_train(p: Dict, t: Triplane, rollout: bool) -> Triplane:
+    if rollout:
+        if p["xy"]["w"].shape[0] == 3 and min(t.sizes) >= 2:
+            return _tconv_apply_rollout_train(p, t)
+        t = _rollout_cat(t)
+    return Triplane(*[nn.conv2d(p[k], x) for k, x in zip(PLANES, t)])
+
+
+# ---------------------------------------------------------------------------
 # Norms and ResBlock
 # ---------------------------------------------------------------------------
 
@@ -269,8 +403,12 @@ def _resblock_apply_stats(p: Dict, t: Triplane, t_stats: Optional[Dict],
 
 def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
                     use_scale_shift: bool, rollout: bool,
-                    fast_norm: bool) -> Triplane:
-    if _use_fused_act():
+                    fast_norm: bool, train: bool = False) -> Triplane:
+    """One resblock; with `train` its 3x3 convs are the differentiable
+    `_tconv_apply_train` (and the opt-in configurations, which need K1′,
+    do not apply), else K1."""
+    conv = _tconv_apply_train if train else _tconv_apply
+    if not train and _use_fused_act():
         # norm + FiLM + SiLU as coefficients applied inside K1′
         a1 = _tnorm_coeffs(p["in_norm"], t)
         h = _tconv_apply(p["in_conv"], t, rollout, act=a1)
@@ -291,7 +429,7 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
         h = _tnorm_silu_fast(p["in_norm"], t)
     else:
         h = _tnorm_apply(p["in_norm"], t).map(nn.silu)
-    h = _tconv_apply(p["in_conv"], h, rollout)
+    h = conv(p["in_conv"], h, rollout)
 
     emb_out = nn.linear(p["emb"], nn.silu(emb)).to(h.dtype)
     emb_out = emb_out[:, None, None, :]  # [B,1,1,C or 2C]
@@ -308,9 +446,9 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
             h = _tnorm_silu_fast(p["out_norm"], h)
         else:
             h = _tnorm_apply(p["out_norm"], h).map(nn.silu)
-    h = _tconv_apply(p["out_conv"], h, rollout)
+    h = conv(p["out_conv"], h, rollout)
 
-    skip = _tconv_apply(p["skip"], t, rollout=False) if "skip" in p else t
+    skip = conv(p["skip"], t, False) if "skip" in p else t
     return h + skip
 
 
@@ -333,26 +471,48 @@ def _stats_chain_on(cfg: UNetConfig) -> bool:
 @torch.no_grad()
 def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
                timesteps: torch.Tensor) -> Triplane:
-    """Forward pass.  x: Triplane of `[B, ., ., C_in]`; timesteps `[B]`.
-    Returns out_channels planes of the input's sizes, in x's dtype."""
+    """The sampler's forward, through K1.  x: Triplane of `[B, ., .,
+    C_in]`; timesteps `[B]`.  Returns out_channels planes of the input's
+    sizes, in x's dtype."""
+    return _forward(params, cfg, x, timesteps, train=False)
+
+
+def unet_train_apply(params: Dict, cfg: UNetConfig, x: Triplane,
+                     timesteps: torch.Tensor) -> Triplane:
+    """The training forward: the same function as `unet_apply`,
+    differentiable in `params` and `x` (no K1, no opt-in configuration;
+    `cfg.use_checkpoint` recomputes each resblock in the backward)."""
+    return _forward(params, cfg, x, timesteps, train=True)
+
+
+def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
+             timesteps: torch.Tensor, train: bool) -> Triplane:
     te = params["time_embed"]
-    emb = nn.timestep_embedding(timesteps, cfg.model_channels)
+    # fp32, or fp64 where the parameters are (a reference run)
+    emb = nn.timestep_embedding(timesteps, cfg.model_channels, dtype=(
+        torch.promote_types(te["l1"]["w"].dtype, torch.float32)))
     emb = nn.linear(te["l2"], nn.silu(nn.linear(te["l1"], emb)))
 
     h = x.to(cfg.compute_dtype)
-    h = _tconv_apply(params["in_conv"], h, rollout=False)
+    h = _tconv_apply(params["in_conv"], h, rollout=False)   # 1x1: no K1
 
     # the (sum, sum of squares) of h where a chained block made it; None
     # wherever h changed outside a chained conv
-    use_stats = _stats_chain_on(cfg)
+    use_stats = not train and _stats_chain_on(cfg)
     h_stats = None
+
+    def resblock(bp, t, e):
+        return _resblock_apply(bp, t, e, cfg.use_scale_shift_norm,
+                               cfg.rollout, cfg.fast_norm, train)
 
     def block(bp, t, t_stats):
         if use_stats and _stats_block_ok(bp, t, cfg.rollout):
             return _resblock_apply_stats(bp, t, t_stats, emb,
                                          cfg.use_scale_shift_norm)
-        return _resblock_apply(bp, t, emb, cfg.use_scale_shift_norm,
-                               cfg.rollout, cfg.fast_norm), None
+        if train and cfg.use_checkpoint:
+            return checkpoint(resblock, bp, t, emb,
+                              use_reentrant=False), None
+        return resblock(bp, t, emb), None
 
     hs = []
     for level, blocks in enumerate(params["down"]):

@@ -145,6 +145,23 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"{t.device}")
 
 
+def _refuse_grad(*args) -> None:
+    """K1 has no backward: raise where autograd would record the call (a
+    tensor that requires grad, outside `torch.no_grad`).  The UNet's
+    training forward (`models.unet.unet_train_apply`) never comes here."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(args)
+    while stack:
+        a = stack.pop()
+        if isinstance(a, (list, tuple)):
+            stack.extend(a)
+        elif isinstance(a, torch.Tensor) and a.requires_grad:
+            raise RuntimeError(
+                "conv3x3_rollout: K1 has no backward; call it under "
+                "torch.no_grad (train through models.unet.unet_train_apply)")
+
+
 def conv3x3_rollout(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None,
                     col3: Optional[torch.Tensor] = None,
@@ -160,7 +177,8 @@ def conv3x3_rollout(x: torch.Tensor, w: torch.Tensor,
     wf or its first C input channels `wf[:, :, :C]` (the bf16 kernel's
     weights; the CPU and fp32 ignore it).  Returns `[B, H, W, Co]` in x's
     dtype, and with `emit_stats` also its `[B, 2, Co]` fp32 (sum, sum of
-    squares)."""
+    squares).  Raises where autograd would record the call."""
+    _refuse_grad(x, w, b, col3, row3, act, skip, packed)
     if (col3 is None) != (row3 is None):
         raise ValueError("conv3x3_rollout: pass both col3 and row3 or "
                          "neither")
@@ -380,7 +398,8 @@ def conv3x3_rollout_triplane(xs: Sequence[torch.Tensor],
     ONE launch, whose outputs equal the three single-plane launches' bit
     for bit.  fp32 on the card: three launches.  CPU: the plain version.
     Returns the list of outputs, with `emit_stats` also the list of
-    `[B, 2, Co]` stats."""
+    `[B, 2, Co]` stats.  Raises where autograd would record the call."""
+    _refuse_grad(xs, ws, bs, col3s, row3s, acts, skips, packed)
     if not len(xs) == len(ws) == len(bs) == len(col3s) == len(row3s) \
             == len(acts) == len(skips) or not 1 <= len(xs) <= 3:
         raise ValueError("conv3x3_rollout_triplane: 1 to 3 planes, one "

@@ -17,7 +17,7 @@ per call.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -25,16 +25,26 @@ from . import _build
 
 
 def skip_mlp_reference(params: Dict, x: torch.Tensor,
-                       mxu_dtype=torch.float32) -> torch.Tensor:
+                       mxu_dtype=torch.float32,
+                       hidden: Optional[List[torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """Plain PyTorch version of K2: every product takes operands rounded
     to `mxu_dtype`, multiplied and summed in fp32 (callers on the card
-    turn TF32 off)."""
+    turn TF32 off).  A `hidden` list receives x and every hidden layer's
+    fp32 output, in order."""
     def layer(lp, h, relu=True):
         y = (h.to(mxu_dtype).float() @ lp["w"].to(mxu_dtype).float()
              + lp["b"].float())
-        return torch.relu(y) if relu else y
+        if not relu:
+            return y
+        y = torch.relu(y)
+        if hidden is not None:
+            hidden.append(y)
+        return y
 
     x = x.float()
+    if hidden is not None:
+        hidden.append(x)
     h = x
     for lp in params["first"]:
         h = layer(lp, h)
@@ -42,6 +52,66 @@ def skip_mlp_reference(params: Dict, x: torch.Tensor,
     for lp in params["second"][:-1]:
         h = layer(lp, h)
     return layer(params["second"][-1], h, relu=False)
+
+
+BF16_SPACING = 2.0 ** -7    # of |a|, at most, where a rounds to bf16
+ACC_UNIT = 2.0 ** -23       # fp32 accumulation, per term, per side
+
+
+def skip_mlp_bf16_bound(params: Dict, x: torch.Tensor,
+                        dx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`[N, cout]`: per row, how far two bf16-operand evaluations of the
+    head (K2 and `skip_mlp_reference`, or either on another device) can
+    lie apart, to first order in their roundings, when their fp32 inputs
+    are x and x + e with |e| <= dx (default 0).  Both round every operand
+    to bf16 to nearest and sum in fp32 in their own orders, so:
+
+    - each operand a (x, every hidden activation) differs between the two
+      by its own two roundings, at most 2^-8 |a| each (8 significant
+      bits), plus what the earlier layers carried in;
+    - each layer's pre-activation z differs by both sides' fp32
+      accumulation errors, each at most K 2^-23 (|u|^T |W| + |b|) over its
+      K terms, u the rounded operand (the products of bf16 operands are
+      exact in fp32; twice IEEE's K 2^-24, for an accumulator that
+      truncates);
+    - every such difference reaches the output through the head's
+      Jacobian at the plain version's point (signed, through the ReLU
+      masks), so the bound is the sum over operands and pre-activations
+      of |d out / d a| times its difference: for the last layer's operand
+      h that is 2^-7 sum_i |W_last[i] h_i|, the earlier layers add their
+      own terms in place of a fitted margin.
+
+    The Jacobian is taken in fp32 with the bf16-rounded weights."""
+    bf = torch.bfloat16
+    rw = {k: [{"w": lp["w"].to(bf).float(), "b": lp["b"].float()}
+              for lp in params[k]] for k in ("first", "second")}
+    layers = _layers(rw)
+    n_first = len(rw["first"])
+    with torch.enable_grad():
+        x = x.detach().float().requires_grad_(True)
+        acts: List[torch.Tensor] = []
+        out = skip_mlp_reference(rw, x, torch.float32, hidden=acts)
+        cols = []
+        for c in range(out.shape[1]):
+            jac = torch.autograd.grad(out[:, c].sum(), acts,
+                                      retain_graph=c + 1 < out.shape[1])
+            b = (BF16_SPACING * acts[0].abs()
+                 + (0.0 if dx is None else dx.float())) * jac[0].abs()
+            b = b.sum(-1)
+            for l, lp in enumerate(layers):
+                a = acts[l].detach()
+                if l == n_first:
+                    a = torch.cat([acts[0].detach(), a], dim=-1)
+                u = a.to(bf).float().abs()
+                acc = 2 * lp["w"].shape[0] * ACC_UNIT * (
+                    u @ lp["w"].abs() + lp["b"].abs())
+                if l + 1 < len(layers):
+                    h, jh = acts[l + 1].detach(), jac[l + 1].abs()
+                    b = b + ((BF16_SPACING * h + acc * (h > 0)) * jh).sum(-1)
+                else:
+                    b = b + acc[:, c]
+            cols.append(b)
+    return torch.stack(cols, dim=-1).detach()
 
 
 def _layers(params: Dict):

@@ -1,0 +1,399 @@
+"""Diffusion training (counterpart of `sin3dm_tpu/training/diffusion.py`).
+
+One train step: timestep sampling, q_sample, the UNet's training forward
+(`models.unet.unet_train_apply`), the per-plane MSE, backward, AdamW with
+the linear lr anneal, the NaN guard and the EMA.  `steps_per_call` K runs
+K steps per call, a Python loop (JAX scans them in one dispatch);
+metrics reach the host only at the logging cadence.
+
+Semantics follow JAX's optax chain, written out over flat fp32 buffers
+(the parameters, each EMA, mu and nu are one tensor each; the parameter
+leaves the model reads are views of the parameter buffer):
+
+- AdamW as `optax.adamw`: mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g^2,
+  the count advanced, mu and nu bias-corrected by 1 - b^count, update
+  mu_hat / (sqrt(nu_hat) + eps) (eps outside the root), plus weight_decay
+  * params, times -lr(k), where k is the schedule's count before it
+  advances: lr(k) = lr (1 - min(k / anneal, 1)) in float32.
+- NaN guard: where the global grad norm is not finite the update still
+  runs on zeroed grads (mu and nu decay, both counts advance) and the old
+  parameters are kept; the EMA then moves toward the kept parameters.
+- EMA: e r + p (1 - r) in fp32, once per step.
+- Randomness: step k's timesteps and noise are drawn from a generator
+  seeded from (seed, k) alone (`core.rng.step_generator`), so a resumed
+  run draws what an unbroken one would.  Tests pass t and noise in.
+- Checkpoints: `ema_{rate}_{step:06d}.pt` per EMA rate and
+  `opt{step:06d}.pt` in JAX's container and leaf layout (the optimiser
+  state as `core.checkpoint.adamw_tree`); resume loads the parameters
+  from the EMA file and the optimiser state from the opt file.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import checkpoint as ckpt
+from ..core import logger
+from ..core.rng import step_generator
+from ..core.triplane import Triplane, randn_like
+from ..diffusion import resample
+from ..diffusion.gaussian import DiffusionConfig, training_losses
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+_INT32_MAX = 2 ** 31 - 1
+
+
+@dataclass
+class DiffusionTrainerConfig:
+    lr: float = 5e-4
+    weight_decay: float = 0.0
+    lr_anneal_steps: int = 25000
+    ema_rates: Tuple[float, ...] = (0.9999,)
+    batch_size: int = 32
+    schedule_sampler: str = "uniform"   # uniform | loss-second-moment
+    log_interval: int = 100
+    save_interval: int = 25000
+    steps_per_call: int = 1
+
+
+def learning_rate(cfg: DiffusionTrainerConfig,
+                  count: Optional[int]) -> np.float32:
+    """optax's schedule at count k, in float32: lr (1 - min(k / anneal,
+    1)), or lr where there is no anneal."""
+    lr = np.float32(cfg.lr)
+    if not cfg.lr_anneal_steps:
+        return lr
+    frac = np.minimum(np.float32(count) / np.float32(cfg.lr_anneal_steps),
+                      np.float32(1.0))
+    return lr * (np.float32(1.0) - frac)
+
+
+@dataclass
+class TrainState:
+    """Parameters, EMAs and AdamW moments as flat fp32 buffers in the
+    parameter tree's flatten order; `params` is the tree of views of
+    `flat` that the model reads (leaves that require grad)."""
+    params: Dict
+    flat: torch.Tensor
+    ema: List[torch.Tensor]
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int                    # optax ScaleByAdamState.count
+    sched_count: Optional[int]    # ScaleByScheduleState.count (lr schedule)
+    sampler_state: resample.SamplerState
+    step: int
+
+    def tree(self, flat: torch.Tensor) -> Dict:
+        """`flat` (a buffer of this state's layout) as a detached tree."""
+        return _views(flat.detach(), self.params)
+
+
+def _views(flat: torch.Tensor, like: Dict) -> Dict:
+    leaves, off = [], 0
+    for _, leaf in ckpt.leaves_with_paths(like):
+        n = leaf.numel()
+        leaves.append(flat[off:off + n].view(leaf.shape))
+        off += n
+    return ckpt.unflatten_like(like, leaves)
+
+
+def _flat(tree: Dict, device=None) -> torch.Tensor:
+    return torch.cat([torch.as_tensor(v, dtype=torch.float32,
+                                      device=device).reshape(-1)
+                      for _, v in ckpt.leaves_with_paths(tree)])
+
+
+def _layout(tree) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(path, shape) of every leaf, in flatten order."""
+    return [(p, tuple(np.shape(v))) for p, v in ckpt.leaves_with_paths(tree)]
+
+
+def _param_views(flat: torch.Tensor, like: Dict) -> Dict:
+    tree = _views(flat, like)
+    for _, v in ckpt.leaves_with_paths(tree):
+        v.requires_grad_(True)
+    return tree
+
+
+def init_train_state(params: Dict, cfg: DiffusionTrainerConfig,
+                     num_timesteps: int) -> TrainState:
+    """A fresh state whose buffers copy `params` (a tree of tensors)."""
+    device = next(iter(ckpt.leaves_with_paths(params)))[1].device
+    flat = _flat(params, device).detach().clone()
+    return TrainState(
+        params=_param_views(flat, params), flat=flat,
+        ema=[flat.clone() for _ in cfg.ema_rates],
+        mu=torch.zeros_like(flat), nu=torch.zeros_like(flat), count=0,
+        sched_count=0 if cfg.lr_anneal_steps else None,
+        sampler_state=resample.init_sampler_state(num_timesteps, device),
+        step=0)
+
+
+def opt_tree(state: TrainState) -> Dict:
+    """The optimiser state in JAX's leaf layout (numpy leaves)."""
+    def np_tree(buf):
+        return ckpt.unflatten_like(state.params, [
+            v.cpu().numpy() for _, v in ckpt.leaves_with_paths(
+                state.tree(buf))])
+    return ckpt.adamw_tree(state.count, np_tree(state.mu), np_tree(state.nu),
+                           state.sched_count)
+
+
+def load_opt_tree(state: TrainState, tree) -> None:
+    """Set the state's AdamW moments and counts from JAX's leaf layout;
+    ValueError where the tree does not fit the parameters."""
+    count, mu, nu, sched = ckpt.adamw_from_tree(tree)
+    for name, t in (("mu", mu), ("nu", nu)):
+        if _layout(t) != _layout(state.params):
+            raise ValueError(f"optimiser state: {name} does not fit the "
+                             "parameters")
+    with torch.no_grad():
+        state.mu.copy_(_flat(mu, state.flat.device))
+        state.nu.copy_(_flat(nu, state.flat.device))
+    state.count, state.sched_count = count, sched
+
+
+def draw_step_inputs(tcfg: DiffusionTrainerConfig, state: TrainState,
+                     batch: Triplane, seed: int, step: int,
+                     num_timesteps: int) -> Tuple[torch.Tensor, Triplane]:
+    """(t, noise) of global step `step`: drawn from the generator of
+    (seed, step) on the batch's device, t first."""
+    g = step_generator(seed, step, batch.xy.device)
+    B = batch.xy.shape[0]
+    if tcfg.schedule_sampler == "loss-second-moment":
+        t, _ = resample.sample_loss_aware(g, B, state.sampler_state)
+    else:
+        t, _ = resample.sample_uniform(g, B, num_timesteps)
+    return t, randn_like(g, batch)
+
+
+@torch.no_grad()
+def apply_grads(state: TrainState, g: torch.Tensor,
+                tcfg: DiffusionTrainerConfig) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """AdamW, the NaN guard and the EMA on the flat buffers, from the flat
+    gradient `g` (see the module doc).  Returns (global grad norm, ok)."""
+    gnorm = torch.sqrt((g * g).sum())
+    ok = torch.isfinite(gnorm)
+    g = torch.where(ok, g, torch.zeros((), device=g.device))
+    state.mu.mul_(B1).add_(g, alpha=1 - B1)
+    state.nu.mul_(B2).addcmul_(g, g, value=1 - B2)
+    state.count = min(state.count + 1, _INT32_MAX)
+    k = np.float32(state.count)
+    bc1 = float(np.float32(1.0) - np.float32(B1) ** k)
+    bc2 = float(np.float32(1.0) - np.float32(B2) ** k)
+    upd = (state.mu / bc1) / (torch.sqrt(state.nu / bc2) + EPS)
+    if tcfg.weight_decay:
+        upd = upd + tcfg.weight_decay * state.flat
+    lr = learning_rate(tcfg, state.sched_count)
+    if state.sched_count is not None:
+        state.sched_count = min(state.sched_count + 1, _INT32_MAX)
+    new = state.flat + upd * float(-lr)
+    state.flat.copy_(torch.where(ok, new, state.flat))
+    for rate, e in zip(tcfg.ema_rates, state.ema):
+        e.mul_(rate).add_(state.flat, alpha=1.0 - rate)
+    return gnorm, ok
+
+
+def compute_grads(state: TrainState, model_apply: Callable, tables,
+                  dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
+                  batch: Triplane, t: torch.Tensor, noise: Triplane):
+    """(loss terms, importance weights, flat gradient of the weighted mean
+    loss) at the state's parameters, from the given timesteps and noise.
+    `model_apply(params, x_t, t_model)` must be differentiable
+    (`unet_train_apply`)."""
+    if tcfg.schedule_sampler == "loss-second-moment":
+        weights = resample.loss_aware_weights(state.sampler_state, t)
+    else:
+        weights = torch.ones(t.shape, dtype=torch.float32, device=t.device)
+    terms = training_losses(lambda x, tt: model_apply(state.params, x, tt),
+                            tables, dcfg, batch, t, noise)
+    loss = (terms["loss"] * weights).mean()
+    leaves = [v for _, v in ckpt.leaves_with_paths(state.params)]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    g = torch.cat([(torch.zeros_like(v) if gr is None else gr).reshape(-1)
+                   for v, gr in zip(leaves, grads)])
+    return {k: v.detach() for k, v in terms.items()}, weights, g
+
+
+def train_step(state: TrainState, model_apply: Callable, tables,
+               dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
+               batch: Triplane, t: torch.Tensor,
+               noise: Triplane) -> Dict[str, torch.Tensor]:
+    """One step from the given timesteps and noise; updates `state` in
+    place.  Returns the step's metrics as device tensors: grad_norm,
+    skipped, and per example t, loss_w and the loss terms."""
+    terms, weights, g = compute_grads(state, model_apply, tables, dcfg,
+                                      tcfg, batch, t, noise)
+    gnorm, ok = apply_grads(state, g, tcfg)
+    if tcfg.schedule_sampler == "loss-second-moment":
+        state.sampler_state = resample.update_sampler_state(
+            state.sampler_state, t, terms["loss"])
+    state.step += 1
+    return {"grad_norm": gnorm, "skipped": ~ok, "t": t,
+            "loss_w": terms["loss"] * weights, **terms}
+
+
+def make_train_step(model_apply: Callable, tables, dcfg: DiffusionConfig,
+                    tcfg: DiffusionTrainerConfig):
+    """`step_fn(state, batch, seed, inputs=None) -> metrics`: K =
+    steps_per_call steps.  `inputs` (K pairs of (t, noise)) replaces the
+    draws.  Metrics as JAX's fused call gives them: the last step's
+    scalars, every step's per-example values concatenated."""
+    T = int(tables["betas"].shape[0])
+    K = max(tcfg.steps_per_call, 1)
+
+    def step_fn(state: TrainState, batch: Triplane, seed: int,
+                inputs: Optional[Sequence[Tuple[torch.Tensor,
+                                                Triplane]]] = None):
+        per = []
+        for i in range(K):
+            t, noise = inputs[i] if inputs is not None else \
+                draw_step_inputs(tcfg, state, batch, seed, state.step, T)
+            per.append(train_step(state, model_apply, tables, dcfg, tcfg,
+                                  batch, t, noise))
+        return {k: (torch.cat([m[k] for m in per]) if v.dim() else v)
+                for k, v in per[-1].items()}
+
+    return step_fn
+
+
+def quartile_log(metrics: Dict, num_timesteps: int) -> None:
+    """Loss keys, overall and per quarter of the timesteps."""
+    t = metrics["t"].cpu().numpy()
+    for key in ("loss", "mse_xy", "mse_xz", "mse_yz", "vb"):
+        if key not in metrics:
+            continue
+        vals = metrics[key].float().cpu().numpy()
+        logger.logkv_mean(key, float(vals.mean()), count=len(vals))
+        quartile = (4 * t // num_timesteps).astype(np.int32)
+        for q in range(4):
+            m = quartile == q
+            if m.any():
+                logger.logkv_mean(f"{key}_q{q}", float(vals[m].mean()),
+                                  count=int(m.sum()))
+
+
+def ema_checkpoint_name(rate: float, step: int) -> str:
+    return f"ema_{rate}_{step:06d}.pt"
+
+
+def opt_checkpoint_name(step: int) -> str:
+    return f"opt{step:06d}.pt"
+
+
+def find_resume_step(log_dir: str, ema_rate: float) -> int:
+    """The latest step of an `ema_{rate}_{step:06d}.pt` in log_dir, or 0."""
+    if not os.path.isdir(log_dir):
+        return 0
+    pat = re.compile(rf"ema_{re.escape(str(ema_rate))}_(\d+)\.pt$")
+    steps = [int(m.group(1)) for m in map(pat.match, os.listdir(log_dir))
+             if m]
+    return max(steps, default=0)
+
+
+class DiffusionTrainLoop:
+    """The host loop: KV and TensorBoard logging, checkpoints, the
+    periodic sample hook, resume.  With `DIFFUSION_TRAINING_TEST` set in
+    the environment, `run` returns after the first save."""
+
+    def __init__(self, model_apply: Callable, params: Dict, tables,
+                 dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
+                 log_dir: str, batch: Triplane, sample_hook=None,
+                 resume: bool = False):
+        self.model_apply = model_apply
+        self.tables = tables
+        self.dcfg = dcfg
+        self.tcfg = tcfg
+        self.log_dir = log_dir
+        self.batch = batch
+        self.sample_hook = sample_hook
+        self.T = int(tables["betas"].shape[0])
+        self.state = init_train_state(params, tcfg, self.T)
+        self.resume_step = 0
+        os.makedirs(log_dir, exist_ok=True)
+        if resume:
+            self._try_resume()
+        self.step_fn = make_train_step(model_apply, tables, dcfg, tcfg)
+        try:
+            from tensorboardX import SummaryWriter
+            self.tb = SummaryWriter(os.path.join(log_dir, "tblog"))
+        except ImportError:
+            self.tb = None
+
+    def _try_resume(self) -> None:
+        """Load the latest EMA (as the parameters and every EMA) and, where
+        present and compatible, its opt file; continue at its step."""
+        rate = self.tcfg.ema_rates[0]
+        step = find_resume_step(self.log_dir, rate)
+        if step <= 0:
+            return
+        logger.log(f"resuming from step {step}")
+        st = self.state
+        ema, _ = ckpt.load_tree(os.path.join(
+            self.log_dir, ema_checkpoint_name(rate, step)))
+        if _layout(ema) != _layout(st.params):
+            raise ValueError(f"checkpoint structure mismatch at step {step}")
+        with torch.no_grad():
+            st.flat.copy_(_flat(ema, st.flat.device))
+            for e in st.ema:
+                e.copy_(st.flat)
+        opt_path = os.path.join(self.log_dir, opt_checkpoint_name(step))
+        if os.path.exists(opt_path):
+            try:
+                load_opt_tree(st, ckpt.load_tree(opt_path)[0])
+            except ValueError:
+                logger.log("optimizer state incompatible; reinitialized")
+        st.step = step
+        self.resume_step = step
+
+    def run(self, seed: int, n_steps: Optional[int] = None) -> None:
+        """Train from the state's step to `n_steps` (default the anneal
+        length) with step k's draws from (seed, k)."""
+        from ..core.profiling import step_annotation
+        n_steps = n_steps or self.tcfg.lr_anneal_steps
+        saved_at = -1
+        K = max(self.tcfg.steps_per_call, 1)
+        # reading metrics waits for the card: only at this cadence
+        metrics_every = max(10, K, self.tcfg.log_interval // 10)
+        step = self.state.step
+        while step < n_steps:
+            with step_annotation("diffusion_train", step):
+                metrics = self.step_fn(self.state, self.batch, seed)
+            last = step + K - 1
+            if last % metrics_every < K:
+                quartile_log(metrics, self.T)
+                logger.logkv("step", last)
+                logger.logkv("samples", (last + 1) * self.tcfg.batch_size)
+                if self.tb is not None:
+                    self.tb.add_scalar("loss", metrics["loss"].mean().item(),
+                                       global_step=last)
+                    self.tb.add_scalar("grad_norm",
+                                       metrics["grad_norm"].item(),
+                                       global_step=last)
+            if last % self.tcfg.log_interval < K:
+                logger.dumpkvs()
+            if self.sample_hook and step % 5000 < K:
+                self.sample_hook(self, step)
+            step += K
+            if step > 0 and step % self.tcfg.save_interval < K:
+                self.save(step)
+                saved_at = step
+                if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
+                    return
+        if saved_at != n_steps:
+            self.save(n_steps)
+
+    def save(self, step: int) -> None:
+        for rate, ema in zip(self.tcfg.ema_rates, self.state.ema):
+            path = os.path.join(self.log_dir, ema_checkpoint_name(rate, step))
+            ckpt.save_tree(path, self.state.tree(ema))
+            logger.log(f"saved {path}")
+        ckpt.save_tree(os.path.join(self.log_dir, opt_checkpoint_name(step)),
+                       opt_tree(self.state))

@@ -5,7 +5,9 @@ ragged row and channel tiles, stats blocks that end mid-row of a batch
 item), the bf16 kernels' own tile edges (pixel tiles cut by the plane's
 edge, planes narrower or shorter than a tile, 64- and 128-column blocks,
 K2's 128-row tiles and narrow last layers), the triplane launch against three
-single-plane launches, the launch counters, and the wrappers' refusals.
+single-plane launches, the launch counters, and the wrappers' refusals;
+and the UNet's training form (cuDNN convs, autograd, the NaN-guard step)
+on the card against the CPU.
 
 Every test needs an NVIDIA card and skips without one.  The file imports
 no JAX, so on the card it runs without the suite's conftest:
@@ -532,3 +534,80 @@ def test_int8_grid_and_texels_on_card(card, bf16, monkeypatch):
         assert dt.max() <= 1 and (dt > 0).mean() < 0.01
     else:
         assert dt.max() <= 2 and (dt > 1).mean() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# The training form: cuDNN convs and autograd on the card, TF32 off
+# ---------------------------------------------------------------------------
+
+def _train_setup(dev):
+    """A narrow UNet (model_channels 64: every leaf has a gradient), every
+    leaf perturbed so the zero convs are live, and one 8x12x6 batch."""
+    from sin3dm_tpu_torch.core import checkpoint as ck
+    from sin3dm_tpu_torch.core.triplane import Triplane
+    from sin3dm_tpu_torch.models import unet as TU
+    cfg = TU.UNetConfig(in_channels=4, model_channels=64, out_channels=4)
+    g = torch.Generator().manual_seed(0)
+    params = TU.init_unet(g, cfg)
+    params = ck.unflatten_like(params, [
+        (v + 0.02 * torch.randn(v.shape, generator=g)).to(dev)
+        for _, v in ck.leaves_with_paths(params)])
+    x = Triplane(*[torch.randn(s, generator=g).to(dev)
+                   for s in ((2, 8, 12, 4), (2, 8, 6, 4), (2, 12, 6, 4))])
+    return cfg, params, x
+
+
+def test_train_forward_backward_card_vs_cpu(card):
+    """`unet_train_apply` and its grads on the card against the CPU: out
+    within 1e-4 of its scale, each leaf's grad within 1e-4 of its largest
+    |g| (fp32 summation order)."""
+    from sin3dm_tpu_torch.core import checkpoint as ck
+    from sin3dm_tpu_torch.models import unet as TU
+    cfg, params, x = _train_setup("cpu")
+    t = torch.tensor([999, 17])
+    res = {}
+    for dev in ("cpu", card):
+        p = ck.unflatten_like(params, [
+            v.to(dev).requires_grad_(True)
+            for _, v in ck.leaves_with_paths(params)])
+        leaves = [v for _, v in ck.leaves_with_paths(p)]
+        out = TU.unet_train_apply(p, cfg, x.to(dev), t.to(dev))
+        loss = sum((o * o).mean() for o in out)
+        res[str(dev)] = ([o.detach().cpu() for o in out],
+                         [gr.cpu() for gr in torch.autograd.grad(loss,
+                                                                 leaves)])
+    (oc, gc), (og, gg) = res["cpu"], res[str(card)]
+    for a, b in zip(og, oc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    for a, b in zip(gg, gc):
+        assert b.abs().max() > 0
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_nan_guard_step_on_the_card(card):
+    """A step on a batch holding a NaN: params kept bit for bit, mu and nu
+    decayed, both counts advanced, the step reported skipped."""
+    from sin3dm_tpu_torch.diffusion.gaussian import (DiffusionConfig,
+                                                     tables_to_device)
+    from sin3dm_tpu_torch.diffusion.schedule import make_schedule
+    from sin3dm_tpu_torch.models import unet as TU
+    from sin3dm_tpu_torch.training import diffusion as TD
+    cfg, params, x = _train_setup(card)
+    tcfg = TD.DiffusionTrainerConfig(batch_size=2)
+    tables = tables_to_device(make_schedule("linear", 50).tables_f32(), card)
+    state = TD.init_train_state(params, tcfg, 50)
+    step = TD.make_train_step(
+        lambda p, xx, tt: TU.unet_train_apply(p, cfg, xx, tt), tables,
+        DiffusionConfig(original_num_steps=50), tcfg)
+    m = step(state, x, 0)
+    assert not bool(m["skipped"]) and torch.isfinite(m["loss"]).all()
+    flat, mu, nu = state.flat.clone(), state.mu.clone(), state.nu.clone()
+    bad = x.map(torch.clone)
+    bad.xy[0, 0, 0, 0] = float("nan")
+    m = step(state, bad, 0)
+    torch.cuda.synchronize()
+    assert bool(m["skipped"]) and not torch.isfinite(m["grad_norm"])
+    assert torch.equal(state.flat, flat)
+    torch.testing.assert_close(state.mu, mu * 0.9, rtol=1e-6, atol=0)
+    torch.testing.assert_close(state.nu, nu * 0.999, rtol=1e-6, atol=0)
+    assert (state.count, state.sched_count, state.step) == (2, 2, 2)

@@ -115,8 +115,8 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got[settled], want[settled])
 
 
-# the modules of the stats-chain, fused-act, --inpaint and mesh paths,
-# named so that the walk cannot miss them
+# the modules of the stats-chain, fused-act, --inpaint, mesh and training
+# paths, named so that the walk cannot miss them
 CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.models.unet",
            "sin3dm_tpu_torch.diffusion.gaussian",
@@ -128,7 +128,12 @@ CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.geometry.meshproc",
            "sin3dm_tpu_torch.geometry.uvatlas",
            "sin3dm_tpu_torch.geometry.meshio",
-           "sin3dm_tpu_torch.training.ae", "sin3dm_tpu_torch.core.config"}
+           "sin3dm_tpu_torch.training.ae", "sin3dm_tpu_torch.core.config",
+           # the training path
+           "sin3dm_tpu_torch.cli.train", "sin3dm_tpu_torch.core.logger",
+           "sin3dm_tpu_torch.core.profiling", "sin3dm_tpu_torch.core.rng",
+           "sin3dm_tpu_torch.diffusion.resample",
+           "sin3dm_tpu_torch.training.diffusion"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
