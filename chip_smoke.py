@@ -63,6 +63,24 @@ of this repository.  Phases, each printing its results:
    6c a 5-step profile of the train step (busy share, operations,
    top device kernels); 6d `cli.sample --vox` DDIM-10 from what training
    wrote, with K1's and K2's launches counted;
+8. AE training at the committed encoding args.json's width (skip heads,
+   hidden 256 x 4, batch 65,536, fm_reso 128): 8a a synthetic textured
+   shape (a box and a sphere, exact SDF, colour ramp) written by numpy
+   as the mesh sampler's npz at the tag's 184x256x184 grid with 2M on-
+   and 2M near-surface points; 8b one AE train step from the committed
+   AE's params (warm AdamW) on the card with TF32 off against the host
+   CPU (6a's tolerances, worst leaf of each), and each grad against the
+   same step in fp64 on the CPU; 8c `cli.train.main` with
+   `--data_path` that npz, 300 AE iterations and 20 diffusion steps
+   (losses, mean_tsdf_acc >= 0.85, ckpt_final.pth's layout and step,
+   feat.npz's planes, the rec mesh and PNG, the diffusion EMA; launches
+   counted, in all and by shape); 8d K2's launches by stage and shape
+   (evaluate, rec mesh; the AE train step none); 8e K2 on the trained
+   weights against a fresh pack, bit for bit, the plain heads within
+   the derived bound, and the fp64 head no further than the plain
+   version, with a faulty head as the control; 8f the AE step's
+   ms, points/s, peak memory, profile and share of its TF32 bound
+   (K2's evaluate shape, the geo head over [2^20, 64], joins phase 3);
 7. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -591,17 +609,17 @@ def check_k2(ae_params, n_rows: int):
     return {**totals, "max_abs_err": max_err, "bound_by": by}
 
 
-def check_k2_mesh_shapes(ae_params, slab_rows: int, texel_rows: int):
-    """K2 at the shapes the mesh path gives it: the geo head alone over a
-    dense x-slab (`slab_rows` x 64 -> 1) and the texture head over one
-    texel chunk (`texel_rows` x 64 -> 3), bf16, against the plain version
-    and timed as `check_k2` times it.  Returns {head: numbers}."""
+def check_k2_shapes(ae_params, cases):
+    """K2 at the shapes the mesh path and `evaluate` give it, one head
+    alone per case (key, head, rows): the geo head over a dense x-slab
+    and over an on-surface chunk of 2^20 points (-> 1), the texture head
+    over one texel chunk (-> 3); bf16, against the plain version and
+    timed as `check_k2` times it.  Returns {key: numbers}."""
     import torch
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
     g = torch.Generator(device="cuda").manual_seed(3)
     out = {}
-    for head, n_rows in (("geo_decoder", slab_rows),
-                         ("tex_decoder", texel_rows)):
+    for key, head, n_rows in cases:
         params = ae_params[head]
         cin = params["first"][0]["w"].shape[0]
         x = torch.randn(n_rows, cin, generator=g, device="cuda") * 0.5
@@ -616,7 +634,7 @@ def check_k2_mesh_shapes(ae_params, slab_rows: int, texel_rows: int):
 
         t = k2_times(params, x)
         cout = got.shape[1]
-        print(f"K2 bf16 {head} alone N={n_rows} -> {cout} (mesh path): "
+        print(f"K2 bf16 {head} alone N={n_rows} -> {cout} ({key}): "
               f"max_abs_err {err:.3e} of max |ref| {scale:.3e} (ok); kernel "
               f"{t['ms']:.3f} ms (device {t['device_ms']:.3f} ms), plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms "
@@ -624,7 +642,7 @@ def check_k2_mesh_shapes(ae_params, slab_rows: int, texel_rows: int):
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}): "
               f"{t['bound_ms'] / t['device_ms']:.1%} of the bound by device "
               "time")
-        out[head] = {"rows": n_rows, "cout": cout, "max_abs_err": err,
+        out[key] = {"rows": n_rows, "cout": cout, "max_abs_err": err,
                      **{k: t[k] for k in ("ms", "device_ms", "plain_ms",
                                           "library_ms", "library_device_ms",
                                           "bound_ms", "bound_by")}}
@@ -733,6 +751,7 @@ def reset_counts() -> None:
     conv3x3_rollout.launches = 0
     conv3x3_rollout.form_launches = {}
     skip_mlp.launches = 0
+    skip_mlp.shape_launches = {}
 
 
 def read_counts() -> dict:
@@ -740,7 +759,14 @@ def read_counts() -> dict:
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
     return {"k1": conv3x3_rollout.launches,
             "k1_forms": dict(conv3x3_rollout.form_launches),
-            "k2": skip_mlp.launches}
+            "k2": skip_mlp.launches,
+            "k2_shapes": {shape_key(*k): v for k, v in
+                          skip_mlp.shape_launches.items()}}
+
+
+def shape_key(rows: int, cin: int, cout: int) -> str:
+    """A K2 launch shape as the counts by shape name it."""
+    return f"[{rows}, {cin}] -> {cout}"
 
 
 def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
@@ -1251,7 +1277,7 @@ def train_step_flops(ucfg, sizes, B: int) -> dict:
             "bound_ms": step / PEAK_TF32_FLOPS * 1e3}
 
 
-def train_step_card_vs_host(B: int = 2, card: str = "cuda") -> dict:
+def train_step_card_vs_host(B: int = 2) -> dict:
     """6a. One train step at the tag's full width from the committed EMA
     (every leaf gets a gradient), batch B of the tag's feat.npz, t and
     noise drawn by numpy, from the same warm optimiser state (WARM_COUNT),
@@ -1293,7 +1319,7 @@ def train_step_card_vs_host(B: int = 2, card: str = "cuda") -> dict:
     nu = ((1e-3 * (1 + np.abs(rng.standard_normal(n)))) ** 2).astype(
         np.float32)
     out = {}
-    for dev in (torch.device(card), torch.device("cpu")):
+    for dev in (torch.device("cuda"), torch.device("cpu")):
         st = TD.init_train_state(unet_params_from_jax(tree, dev), tcfg, T)
         st.mu.copy_(torch.from_numpy(mu))
         st.nu.copy_(torch.from_numpy(nu))
@@ -1398,7 +1424,8 @@ def drive_train(tag_dir: str, n_calls: int = 4) -> dict:
     try:
         t0 = time.perf_counter()
         loop = train_cli.main(["--tag", tag_dir, "--enc_log",
-                               os.path.join(TAG, "encoding")] + TRAIN_ARGV)
+                               os.path.join(TAG, "encoding")]
+                              + TRAIN_ARGV).diffusion
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -1493,6 +1520,682 @@ def profile_train(loop, ucfg, n_steps: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: AE training
+# ---------------------------------------------------------------------------
+
+ENC_ARGS = os.path.join(TAG, "encoding", "args.json")
+AE_ITERS = 300            # 8c, the bar's iteration count (tests/test_ae.py)
+AE_ACC_BAR = 0.85         # 8c, mean_tsdf_acc after AE_ITERS
+AE_SURF = 2_000_000       # near- and on-surface points of the npz
+
+
+def synth_shape_npz(path: str, seed: int = 0) -> dict:
+    """8a. A textured analytic shape as the mesh sampler's npz, at the
+    committed tag's training-grid shape inside its AABB (the committed
+    ckpt_final.pth meta): a box (a tower's base) and, above it and apart
+    from it, a sphere, so that min(sdf_box, sdf_sphere) is the union's
+    exact SDF; the colour is a smooth ramp of position.  Grid points are
+    the AABB's voxel centres; AE_SURF on-surface points spread by area
+    over both surfaces, AE_SURF near-surface points 0.005 off them, the
+    threshold 3 voxels.  Written with np.savez, from a numpy generator
+    seeded with `seed`."""
+    import numpy as np
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.dataio.grid import sample_grid_points_aabb
+    _, meta = ckpt.load_tree(os.path.join(TAG, "encoding",
+                                          "ckpt_final.pth"), "params")
+    aabb = np.asarray(meta["aabb"], np.float32)
+    lo, hi = aabb[:3], aabb[3:]
+    box_c = np.array([0.0, -0.35, 0.0], np.float32)
+    box_h = np.array([0.35, 0.5, 0.35], np.float32)
+    sph_c = np.array([0.0, 0.5, 0.0], np.float32)
+    sph_r = np.float32(0.3)
+
+    def sdf(p):
+        q = np.abs(p - box_c) - box_h
+        box = (np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+               + np.minimum(q.max(axis=-1), 0.0))
+        return np.minimum(box, np.linalg.norm(p - sph_c, axis=-1) - sph_r)
+
+    def tex(p):
+        t = (p - lo) / (hi - lo)
+        return np.stack([t[..., 0], t[..., 1],
+                         0.5 + 0.5 * np.sin(6.0 * t[..., 2])],
+                        axis=-1).astype(np.float32)
+
+    rng = np.random.default_rng(seed)
+    grid = sample_grid_points_aabb(aabb, 256).astype(np.float32)
+    areas = {"sphere": 4 * np.pi * sph_r ** 2,
+             "box": 8 * (box_h[0] * box_h[1] + box_h[0] * box_h[2]
+                         + box_h[1] * box_h[2])}
+    n_sph = int(round(AE_SURF * areas["sphere"] / sum(areas.values())))
+    d = rng.standard_normal((n_sph, 3)).astype(np.float32)
+    on_sph = sph_c + sph_r * d / np.linalg.norm(d, axis=-1, keepdims=True)
+    # box faces by area: axis a fixed at +-h[a], the other two uniform
+    n_box = AE_SURF - n_sph
+    face_area = np.array([box_h[1] * box_h[2], box_h[0] * box_h[2],
+                          box_h[0] * box_h[1]], np.float64)
+    axis = rng.choice(3, n_box, p=face_area / face_area.sum())
+    u = rng.uniform(-1.0, 1.0, (n_box, 3)).astype(np.float32)
+    u[np.arange(n_box), axis] = rng.choice([-1.0, 1.0], n_box)
+    on_box = box_c + u * box_h
+    on = np.concatenate([on_sph, on_box]).astype(np.float32)
+    near = (on + rng.normal(0.0, 0.005, on.shape)).astype(np.float32)
+    threshold = 2.0 / 256 * 3
+    arrays = dict(
+        pts_grid=grid, sdf_grid=sdf(grid).astype(np.float32),
+        tex_grid=tex(grid), pts_on_surf=on, tex_on_surf=tex(on),
+        pts_near_surf=near, sdf_near_surf=sdf(near).astype(np.float32),
+        tex_near_surf=tex(near), aabb=aabb,
+        threshold=np.float32(threshold), Ka=[0, 0, 0], Kd=[1, 1, 1],
+        Ks=[0.4, 0.4, 0.4], Ns=10)
+    with open(path, "wb") as fh:
+        np.savez(fh, **arrays)
+    nbytes = sum(np.asarray(v).nbytes for v in arrays.values())
+    inside = float((arrays["sdf_grid"] < 0).mean())
+    print(f"ae data: {path}: grid {grid.shape[:3]} "
+          f"({grid.shape[0] * grid.shape[1] * grid.shape[2]} points, "
+          f"{inside:.4f} inside), {AE_SURF} on- and {AE_SURF} near-surface "
+          f"points, threshold {threshold:.7f}, {nbytes / 2 ** 20:.1f} MiB")
+    return {"grid_shape": list(grid.shape[:3]), "nbytes": nbytes,
+            "inside_share": inside}
+
+
+def enc_args() -> dict:
+    """The committed encoding's args.json."""
+    with open(ENC_ARGS) as fh:
+        return json.load(fh)
+
+
+def encoding_argv() -> list:
+    """The committed encoding args.json's values as cli.train flags (its
+    data_path and iteration count aside)."""
+    argv = []
+    for k, v in enc_args().items():
+        if k not in ("data_path", "enc_n_iters"):
+            argv += [f"--{k}", str(v)]
+    return argv
+
+
+def ae_setup(npz: str, dev):
+    """(acfg, tcfg, data, meta) at the encoding args.json's width, the
+    data on `dev`."""
+    import argparse
+    from sin3dm_tpu_torch.core import config as cfgmod
+    from sin3dm_tpu_torch.training import ae as TA
+    args = argparse.Namespace(**enc_args())
+    acfg = cfgmod.ae_config_from_args(args)
+    tcfg = cfgmod.ae_trainer_config_from_args(args)
+    data, meta, _ = TA.load_ae_data(npz, tcfg, dev, acfg.data_type)
+    return acfg, tcfg, data, meta
+
+
+def cancelled_leaf(path: str) -> bool:
+    """A bias that an InstanceNorm right after it removes (the encoders'
+    biases, each block's in-conv bias): its grad is 0 but for roundoff."""
+    parts = path.split("/")
+    return parts[-1] == "b" and (parts[0] in ("geo_encoder", "tex_encoder")
+                                 or "in_conv" in parts)
+
+
+def ae_step_card_vs_host(npz: str) -> dict:
+    """8b. One AE train step at the encoding args.json's width from the
+    committed ckpt_final.pth's params, a warm AdamW state (WARM_COUNT,
+    mu and nu of the grads' sizes) and the same window offsets (drawn by
+    numpy), on the card with TF32 off and on this machine's CPU with the
+    port's plain code.  Holds 6a's tolerances: loss terms 1e-5 relative;
+    each leaf's grad 1e-4 of that leaf's max |g| (a bias an InstanceNorm
+    cancels: both sides below 1e-5 of the whole grad's max |g|); params
+    1e-5 absolute; mu 1e-4 and nu 2e-4 of the leaf's largest value.
+    Prints the worst leaf of each.  A second witness, the same gradient
+    in fp64 on the CPU, says which side an error lies on, as in 6a: the
+    card's grad is held to it at 1e-4 of each leaf's max |g| as well,
+    and both sides' distances from it are printed at the worst leaf."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.training import ae as TA
+    tree, _ = ckpt.load_tree(os.path.join(TAG, "encoding",
+                                          "ckpt_final.pth"), "params")
+    rng = np.random.default_rng(8)
+    out, offsets = {}, None
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        acfg, tcfg, data, meta = ae_setup(npz, dev)
+        if offsets is None:
+            n_grid, n_surf = TA.batch_split(tcfg)
+            offsets = tuple(
+                rng.integers(0, rows - max(TA.window_sizes(total)) + 1,
+                             TA.N_WINDOWS).tolist()
+                for total, rows in ((n_grid, data.pts_grid.shape[0]),
+                                    (n_surf, data.pts_near_surf.shape[0])))
+            n = sum(v.size for _, v in ckpt.leaves_with_paths(tree))
+            mu = (1e-3 * rng.standard_normal(n)).astype(np.float32)
+            nu = ((1e-3 * (1 + np.abs(rng.standard_normal(n)))) ** 2
+                  ).astype(np.float32)
+        st = TA.init_train_state(ae_params_from_jax(tree, dev), tcfg)
+        st.mu.copy_(torch.from_numpy(mu))
+        st.nu.copy_(torch.from_numpy(nu))
+        st.count = st.sched_count = st.step = WARM_COUNT
+        t0 = time.perf_counter()
+        with tf32(False):
+            terms, g = TA.compute_grads(st, acfg, tcfg, data,
+                                        meta["threshold"], offsets)
+            TA.apply_grads(st, g, tcfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["card" if not out else "host"] = {
+            "terms": {k: v.cpu() for k, v in terms.items()}, "g": g.cpu(),
+            "flat": st.flat.cpu(), "mu": st.mu.cpu(), "nu": st.nu.cpu(),
+            "seconds": time.perf_counter() - t0, "state": st}
+    c, h = out["card"], out["host"]
+    ref = h["state"]
+    # the second witness: the same gradient in fp64 on this machine's CPU
+    t0 = time.perf_counter()
+    p32 = ae_params_from_jax(tree, "cpu")
+    leaves = [v.double().requires_grad_() for _, v in
+              ckpt.leaves_with_paths(p32)]
+    data64 = TA.AEData(*[a.double() if a is not None and a.is_floating_point()
+                         else a for a in data])
+    _, g64 = TA.compute_grads(
+        dataclasses.replace(ref, params=ckpt.unflatten_like(p32, leaves)),
+        acfg, tcfg, data64, meta["threshold"], offsets)
+    del data, data64
+    secs64 = time.perf_counter() - t0
+    w64 = {side: {p: e for p, e in _errs(ref, out[side]["g"].double(), g64,
+                                         True).items()
+                  if not cancelled_leaf(p)}
+           for side in ("card", "host")}
+    terms_err = max(((c["terms"][k] - v).abs() / v.abs()).max().item()
+                    for k, v in h["terms"].items())
+    cg = dict(ckpt.leaves_with_paths(ref.tree(c["g"])))
+    hg = dict(ckpt.leaves_with_paths(ref.tree(h["g"])))
+    top = h["g"].abs().max().item()
+    cancel = {p: max(cg[p].abs().max().item(),
+                     hg[p].abs().max().item()) / top
+              for p in hg if cancelled_leaf(p)}
+    ge = {p: e for p, e in _errs(ref, c["g"], h["g"], True).items()
+          if p not in cancel}
+    g_leaf = max(ge, key=ge.get)
+    c_leaf = max(cancel, key=cancel.get)
+    checks = {"terms": (terms_err, ", ".join(h["terms"]), 1e-5),
+              "grad": (ge[g_leaf], g_leaf, 1e-4),
+              "grad, cancelled biases": (cancel[c_leaf], c_leaf, 1e-5),
+              "params": _worst(ref, c["flat"], h["flat"], False) + (1e-5,),
+              "mu": _worst(ref, c["mu"], h["mu"], True) + (1e-4,),
+              "nu": _worst(ref, c["nu"], h["nu"], True) + (2e-4,)}
+    print(f"ae train step card vs host (batch {tcfg.enc_batch_size}, the "
+          f"committed AE's params, warm AdamW at count {WARM_COUNT}, TF32 "
+          f"off, offsets {offsets}): card {c['seconds']:.3f} s, host CPU "
+          f"{h['seconds']:.3f} s (both with the first call's set-up)")
+    failed = []
+    for name, (err, leaf, tol) in checks.items():
+        ok = err <= tol
+        kind = "abs" if name == "params" else "rel"
+        print(f"  {name:22s}: worst {err:.3e} ({kind}; tol {tol:.0e}) at "
+              f"{leaf} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failed.append(name)
+    leaf = checks["grad"][1]
+    fp64 = {"seconds": secs64, "at_worst_card_vs_host_leaf": {
+        "leaf": leaf, "card": w64["card"][leaf], "host": w64["host"][leaf]}}
+    for side, e in w64.items():
+        worst = max(e, key=e.get)
+        fp64[side] = {"worst": e[worst], "leaf": worst}
+        ok = e[worst] <= 1e-4
+        print(f"  grad {side} vs fp64 (CPU, {secs64:.1f} s): worst "
+              f"{e[worst]:.3e} (rel; tol 1e-04) at {worst} "
+              f"({'ok' if ok else 'FAIL'})")
+        if side == "card" and not ok:
+            failed.append("grad vs fp64")
+    print(f"  at {leaf}: card vs fp64 {w64['card'][leaf]:.3e}, host vs fp64 "
+          f"{w64['host'][leaf]:.3e}")
+    if failed:
+        fail(f"ae train step card vs host: {', '.join(failed)} outside the "
+             "tolerances")
+    return {**{k: {"worst": v[0], "leaf": v[1], "tol": v[2]}
+               for k, v in checks.items()}, "grad_vs_fp64": fp64}
+
+
+def ae_step_flops(acfg, tcfg, featmap) -> dict:
+    """Operations of one AE train step counted from the shapes: the
+    Conv3d encoders over the feature-map volume (forward, and the weight
+    grad: the volume takes no grad), the per-plane 5x5 and 1x1 convs of
+    each branch and the skip heads over the batch (forward, input grad
+    and weight grad: 3x); gathers, norms and elementwise work left out.
+    Returns the forward, the step and the step's bound at the TF32
+    peak."""
+    X, Y, Z = featmap
+    vox = X * Y * Z
+    px = X * Y + X * Z + Y * Z
+    bs = tcfg.enc_batch_size
+    n_tex = acfg.tex_channels if acfg.use_tex else 0
+    enc = 2.0 * vox * 64 * (1 * acfg.fdim_geo
+                            + ((n_tex + 1) * acfg.fdim_tex if n_tex else 0))
+    branches = [acfg.fdim_geo] + ([acfg.fdim_tex] if n_tex else [])
+    up = acfg.fdim_up
+    convs = sum(2.0 * px * (25 * cin * up + 25 * up * up
+                            + (cin * up if cin != up else 0))
+                for cin in branches)
+    hid, nh = acfg.hidden_dim, acfg.n_hidden_layers
+    n_first = 1 + nh // 2
+    head = (up * hid + (n_first - 1) * hid * hid + (up + hid) * hid
+            + (nh // 2 - 1) * hid * hid)
+    heads = 2.0 * bs * sum(head + hid * cout
+                           for cout in [1] + ([n_tex] if n_tex else []))
+    fwd = enc + convs + heads
+    step = 2.0 * enc + 3.0 * (convs + heads)
+    return {"forward": fwd, "step": step, "heads_forward": heads,
+            "convs_forward": convs, "encoders_forward": enc,
+            "bound_ms": step / PEAK_TF32_FLOPS * 1e3}
+
+
+def drive_ae_train(tag_dir: str, npz: str) -> dict:
+    """8c. `cli.train.main` on a fresh tag with `--data_path` the 8a npz,
+    the encoding args.json's values, AE_ITERS AE iterations logged every
+    50, then the diffusion stage cut to 20 steps at batch 32 (TF32 on, as
+    the CLI sets it), with the launch counts set to 0 just before and
+    read just after.  Fails unless every logged AE loss is finite and the
+    last below the first, eval_stat.json's mean_tsdf_acc reaches
+    AE_ACC_BAR, ckpt_final.pth holds params, the chained optimiser state
+    and step AE_ITERS, feat.npz's planes have the committed feat.npz's
+    shapes, rec/object.obj has 0 < faces <= 10,000 inside the AABB widened
+    by a voxel beside a valid rec/object.png, and the diffusion stage
+    wrote its EMA.  Returns the numbers and main's result."""
+    import math
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import train as train_cli
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+
+    argv = (["--tag", tag_dir, "--data_path", npz] + encoding_argv()
+            + ["--enc_n_iters", str(AE_ITERS), "--log_interval", "50",
+               "--diff_batch_size", "32", "--diff_n_iters", "20",
+               "--save_interval", "20"])
+    old_fmt = os.environ.get("SIN3DM_LOG_FORMAT")
+    os.environ["SIN3DM_LOG_FORMAT"] = "log,csv,json"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        if old_fmt is None:
+            os.environ.pop("SIN3DM_LOG_FORMAT", None)
+        else:
+            os.environ["SIN3DM_LOG_FORMAT"] = old_fmt
+    peak = torch.cuda.max_memory_allocated()
+    enc = os.path.join(tag_dir, "encoding")
+    with open(os.path.join(enc, "progress.json")) as fh:
+        dumps = [json.loads(ln) for ln in fh if ln.strip()]
+    losses = [d["ae/loss"] for d in dumps]
+    with open(os.path.join(enc, "eval_stat.json")) as fh:
+        stat = json.load(fh)
+    paths = ckpt.peek_paths(os.path.join(enc, "ckpt_final.pth"))
+    tree, _ = ckpt.load_tree(os.path.join(enc, "ckpt_final.pth"))
+    step = int(tree["step"])
+    layout_ok = (any(p.startswith("params/") for p in paths)
+                 and "opt_state/0/0/.count" in paths
+                 and "opt_state/0/2/.count" in paths and step == AE_ITERS)
+    with np.load(os.path.join(enc, "feat.npz")) as f:
+        shapes = [tuple(f[k].shape) for k in ("feat_xy", "feat_xz",
+                                              "feat_yz")]
+    want_shapes = [(12, 92, 128), (12, 92, 92), (12, 128, 92)]
+    aabb = np.asarray(res.ae.meta["aabb"], np.float64)
+    lo, hi = aabb[:3], aabb[3:]
+    voxel = (hi.max() - lo.min()) / enc_args()["rec_reso"]
+    v, nf = obj_mesh(os.path.join(enc, "rec", "object.obj"))
+    inside = bool(len(v) and ((v >= lo - voxel) & (v <= hi + voxel)).all())
+    check_png(os.path.join(enc, "rec", "object.png"), 2048)
+    ema = os.path.join(tag_dir, "diffusion", "ema_0.9999_000020.pt")
+    print(f"ae train (cli.train, {AE_ITERS} AE iterations at batch "
+          f"{res.ae.tcfg.enc_batch_size}, then 20 diffusion steps at batch "
+          f"32, TF32 on): main {total:.3f} s in all; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; AE loss per log "
+          f"{[round(x, 6) for x in losses]} at iterations "
+          f"{[d['ae/iter'] for d in dumps]}")
+    print(f"ae train: eval_stat mean_tsdf_acc {stat['mean_tsdf_acc']:.6f} "
+          f"(bar {AE_ACC_BAR}), mean_tsdf_l1_error "
+          f"{stat['mean_tsdf_l1_error']:.6e}, surf_tex_l1_error "
+          f"{stat.get('surf_tex_l1_error', float('nan')):.6f}; "
+          f"ckpt_final.pth params/opt_state/0/0, 0/2 and step {step}: "
+          f"{layout_ok}; feat.npz planes {shapes}; rec/object.obj {nf} "
+          f"faces, {len(v)} vertices, inside the AABB widened by a voxel: "
+          f"{inside}; rec/object.png 2048x2048 RGB, valid; "
+          f"{os.path.basename(ema)} {os.path.exists(ema)}; launches K1 "
+          f"{counts['k1']}, K2 {counts['k2']}")
+    ok = (len(losses) >= 2 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and layout_ok
+          and shapes == want_shapes and 0 < nf <= 10000 and inside
+          and os.path.exists(ema) and counts["k1"] == 0)
+    if not ok:
+        fail("ae train: the CLI run did not meet its checks")
+    if not stat["mean_tsdf_acc"] >= AE_ACC_BAR:
+        fail(f"ae train: mean_tsdf_acc {stat['mean_tsdf_acc']:.6f} below "
+             f"{AE_ACC_BAR} after {AE_ITERS} iterations")
+    return {"main_s": total, "peak_bytes": peak, "losses": losses,
+            "log_iters": [d["ae/iter"] for d in dumps], "eval_stat": stat,
+            "rec_faces": nf, "launches": {"k1": counts["k1"],
+                                          "k2": counts["k2"]},
+            "k2_shapes": counts["k2_shapes"], "result": res}
+
+
+def ae_launches(trainer, main_k2: dict, tmp: str, reso: int) -> dict:
+    """8d. K2 launches of `evaluate` (one per x-slab of 8 of the training
+    grid, then the geo and texture heads over each on-surface chunk of
+    2^20 points), counted by shape, and of the `rec` mesh at `reso` (its
+    geo-grid slabs and texel chunks), each counted from 0 around a second
+    call on the trained trainer; their sum, in all and by shape, must be
+    what the CLI run (`main_k2`: its count and counts by shape)
+    launched."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions
+    gx, gy, gz = trainer.meta["grid_shape"]
+    n_surf = trainer.data.pts_on_surf.shape[0]
+    heads = [(trainer.params[h]["first"][0]["w"].shape[0],
+              trainer.params[h]["second"][-1]["w"].shape[1])
+             for h in ("geo_decoder", "tex_decoder")]
+    cin = heads[0][0]
+    want_shapes = {}
+    for rows, (c_in, cout) in ([(min(8, gx - x0) * gy * gz, heads[0])
+                                for x0 in range(0, gx, 8)]
+                               + [(min(2 ** 20, n_surf - i), hd)
+                                  for i in range(0, n_surf, 2 ** 20)
+                                  for hd in heads]):
+        k = shape_key(rows, c_in, cout)
+        want_shapes[k] = want_shapes.get(k, 0) + 1
+    want_eval = sum(want_shapes.values())
+    reset_counts()
+    trainer.evaluate()
+    torch.cuda.synchronize()
+    got_eval = read_counts()
+    trainer.stage_log = []
+    feat = trainer.encode()
+    reset_counts()
+    trainer.decode_texmesh(os.path.join(tmp, "rec"), feat, reso)
+    torch.cuda.synchronize()
+    got_rec = read_counts()
+    texels = [e["texels"] for e in trainer.stage_log
+              if e["stage"] == "texel dispatch"]
+    trainer.stage_log = None
+    slabs = -(-int(grid_resolutions(np.asarray(trainer.meta["aabb"]),
+                                    reso)[0]) // 8)
+    want_rec = slabs + sum(texel_chunks(t) for t in texels)
+    both = {k: got_eval["k2_shapes"].get(k, 0) + got_rec["k2_shapes"].get(k, 0)
+            for k in set(got_eval["k2_shapes"]) | set(got_rec["k2_shapes"])}
+    chunk = shape_key(2 ** 20, cin, 1)
+    print(f"ae launches: evaluate K1 {got_eval['k1']} K2 {got_eval['k2']} "
+          f"(want 0 and {want_eval}: {-(-gx // 8)} slabs + 2 heads x "
+          f"{-(-n_surf // 2 ** 20)} surface chunks), by shape "
+          f"{got_eval['k2_shapes']} (want {want_shapes}); rec mesh K1 "
+          f"{got_rec['k1']} K2 {got_rec['k2']} (want 0 and {want_rec}: "
+          f"{slabs} slabs + the texel chunks of {texels} texels); the CLI "
+          f"run's K2 {main_k2['k2']} (want {want_eval + want_rec}), by "
+          f"shape {main_k2['k2_shapes']} (want the two calls' {both}); "
+          f"{chunk}: {main_k2['k2_shapes'].get(chunk, 0)} in the CLI run")
+    if (got_eval["k1"] or got_rec["k1"]
+            or got_eval["k2_shapes"] != want_shapes
+            or got_rec["k2"] != want_rec
+            or main_k2["k2"] != want_eval + want_rec
+            or main_k2["k2_shapes"] != both):
+        fail("ae launches: evaluate or the rec mesh did not launch K2 as "
+             "expected")
+    return {"evaluate": got_eval["k2"], "rec": got_rec["k2"],
+            "evaluate_by_shape": got_eval["k2_shapes"],
+            "cli_by_shape": main_k2["k2_shapes"],
+            "surface_chunk_geo": main_k2["k2_shapes"].get(chunk, 0),
+            "rec_texels": texels}
+
+
+# 8e's witness: K2 and the plain version round the same operands to bf16
+# and differ only in the order (and, on tensor cores, the rounding) of
+# their fp32 sums, so on trained weights K2 lies no further from the fp64
+# value than twice the plain version's distance, each row's distance
+# measured in its share of `skip_mlp_bf16_bound`, over the slab's worst
+# row and its mean row alike
+K2_WITNESS_FACTOR = 2.0
+
+
+def head_fp64(params, x):
+    """The skip head in fp64 throughout: the value both bf16 evaluations
+    round toward."""
+    import torch
+    x = x.double()
+    h = x
+    for lp in params["first"]:
+        h = torch.relu(h @ lp["w"].double() + lp["b"].double())
+    h = torch.cat([x, h], dim=-1)
+    for lp in params["second"][:-1]:
+        h = torch.relu(h @ lp["w"].double() + lp["b"].double())
+    last = params["second"][-1]
+    return h @ last["w"].double() + last["b"].double()
+
+
+def faulty_heads(params) -> dict:
+    """8e's controls, faults a kernel could make: the last layer's
+    weights one bf16 ulp larger in magnitude, and the first layer's
+    weights rounded to fp8 (e4m3) in place of bf16."""
+    import torch
+
+    def with_layer(key, i, w):
+        out = {k: [dict(lp) for lp in params[k]] for k in ("first",
+                                                           "second")}
+        out[key][i]["w"] = w
+        return out
+
+    w0 = params["first"][0]["w"]
+    wl = params["second"][-1]["w"].to(torch.bfloat16)
+    return {"last layer's weights one ulp up": with_layer(
+                "second", -1,
+                (wl.view(torch.int16) + 1).view(torch.bfloat16).float()),
+            "first layer's weights in fp8": with_layer(
+                "first", 0, w0.to(torch.float8_e4m3fn).float())}
+
+
+def ae_k2_trained(trainer) -> dict:
+    """8e. K2 (bf16) with the trainer's packed weights over evaluate's
+    first x-slab of each head's features, against the same trained params
+    (the train state's raw leaves, which must equal ckpt_final.pth's) on
+    the card: the trainer's pack must equal a pack made from those leaves
+    now, and its launch the launch with that pack, bit for bit (a stale
+    pack fails both); against the plain heads the output is held to the
+    derived per-row bound `skip_mlp_bf16_bound`.  Phase 3's 2^-8 of max
+    |ref| cannot hold here (trained features give sdf values far smaller
+    than the terms they sum), so a witness decides whether the gap is
+    rounding: the head in fp64 on the card, from which K2 must lie no
+    further than K2_WITNESS_FACTOR times the plain version's distance
+    (the bf16 torch.matmul chain's, which rounds each layer's output too,
+    is printed beside them).  The first control of `faulty_heads`, a
+    bias of one ulp, must break the witness or the bound, else 8e could
+    not see such a fault; the second, an unbiased coarser rounding of the
+    first layer, is printed only: its errors average out through the
+    layers after it, and it may lie within the witness."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.models import autoencoder as ae
+    from sin3dm_tpu_torch.ops import pack_params
+    from sin3dm_tpu_torch.ops.fused_mlp import (skip_mlp,
+                                                skip_mlp_bf16_bound,
+                                                skip_mlp_reference)
+    st = trainer.state
+    raw = st.tree(st.flat)
+    saved, _ = ckpt.load_tree(os.path.join(trainer.log_dir,
+                                           "ckpt_final.pth"), "params")
+    same = all(np.array_equal(v.cpu().numpy(), w) for (_, v), (_, w) in
+               zip(ckpt.leaves_with_paths(raw),
+                   ckpt.leaves_with_paths(saved)))
+    if not same:
+        fail("ae k2: the train state's params differ from ckpt_final.pth")
+    fresh = pack_params(raw)
+    out = {}
+    with torch.no_grad():
+        gp, tp = trainer._planes(trainer.encode())
+        for head, planes in (("geo_decoder", gp), ("tex_decoder", tp)):
+            _, x = next(ae.grid_slab_features(
+                planes, tuple(trainer.meta["grid_shape"])))
+            pk, pf = trainer.params[head]["k2"], fresh[head]["k2"]
+            pack_same = pk["dims"] == pf["dims"] and all(
+                torch.equal(pk[k], pf[k]) for k in ("wts", "bias", "table"))
+            got = skip_mlp(trainer.params[head], x, mxu_dtype=torch.bfloat16)
+            again = skip_mlp(fresh[head], x, mxu_dtype=torch.bfloat16)
+            ref = skip_mlp_reference(raw[head], x, torch.bfloat16)
+            bnd = skip_mlp_bf16_bound(raw[head], x)
+            r64 = head_fp64(raw[head], x)
+            torch.cuda.synchronize()
+            launch_same = torch.equal(got, again)
+            err = (got - ref).abs()
+            worst = (err / bnd).max().item()
+            scale = ref.abs().max().item()
+            p3 = err.max().item() / (K2_BF16_TOL * max(scale, 1e-6))
+
+            def vs64(y):
+                d = (y.double() - r64).abs()
+                return {"max_abs": d.max().item(),
+                        "of_bound": (d / bnd).max().item(),
+                        "mean_of_bound": (d / bnd).mean().item(),
+                        "of_phase3_tol": d.max().item() / (
+                            K2_BF16_TOL * max(scale, 1e-6))}
+
+            def ratio_of(v):        # the witness: the larger of the two
+                return max(v[k] / w["plain"][k]
+                           for k in ("of_bound", "mean_of_bound"))
+
+            w = {"k2": vs64(got), "plain": vs64(ref),
+                 "library": vs64(k2_library(raw[head], x).float())}
+            ratio = ratio_of(w["k2"])
+            ok = (pack_same and launch_same and worst <= 1.0
+                  and ratio <= K2_WITNESS_FACTOR)
+            print(f"ae k2 on the trained weights, {head} over evaluate's "
+                  f"slab {tuple(x.shape)}: the trainer's pack equals a "
+                  f"fresh one {pack_same}, its launch the fresh pack's bit "
+                  f"for bit {launch_same}; against the plain heads "
+                  f"max_abs_err {err.max().item():.3e}, worst row "
+                  f"{worst:.4f} of its derived bound; {p3:.3f}x phase 3's "
+                  f"2^-8 of max |ref| {scale:.3e}; from fp64: " + ", ".join(
+                      f"{k} max {v['max_abs']:.3e} (worst row "
+                      f"{v['of_bound']:.4f}, mean row "
+                      f"{v['mean_of_bound']:.5f} of the bound; "
+                      f"{v['of_phase3_tol']:.3f}x phase 3's tolerance)"
+                      for k, v in w.items())
+                  + f"; K2 {ratio:.3f}x the plain version's distance (tol "
+                  f"{K2_WITNESS_FACTOR}) ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                fail(f"ae k2: {head} with the trainer's pack disagrees with "
+                     "the trained params")
+            controls = {}
+            for i, (name, fp) in enumerate(faulty_heads(raw[head]).items()):
+                y = skip_mlp_reference(fp, x, torch.bfloat16)
+                c = {"witness_ratio": ratio_of(vs64(y)),
+                     "of_bound": ((y - ref).abs() / bnd).max().item()}
+                caught = (c["witness_ratio"] > K2_WITNESS_FACTOR
+                          or c["of_bound"] > 1.0)
+                print(f"  control, {name}: {c['witness_ratio']:.3f}x the "
+                      f"plain version's distance from fp64, worst row "
+                      f"{c['of_bound']:.4f} of the bound against the plain "
+                      f"heads: {'caught' if caught else 'not caught'}")
+                if i == 0 and not caught:
+                    fail(f"ae k2: {head}: 8e cannot see the control {name}")
+                controls[name] = {**c, "caught": caught}
+            out[head] = {"rows": x.shape[0], "max_abs_err": err.max().item(),
+                         "max_ref": scale, "worst_of_bound": worst,
+                         "of_phase3_tol": p3, "from_fp64": w,
+                         "witness_ratio": ratio, "controls": controls}
+    return out
+
+
+def ae_step_time(trainer, n_steps: int = 50, warm: int = 5,
+                 prof_steps: int = 5) -> dict:
+    """8d and 8f. The CLI's AE step on the trained trainer's state (TF32
+    on, as the CLI trains): `warm` steps, then `n_steps` timed by the host
+    clock from a sync to a sync with the launch counts set to 0 just
+    before and read just after (K1 and K2: 0) and the peak device memory
+    over them; points/s; the step's operations against the TF32 bound;
+    then `prof_steps` steps under torch.profiler."""
+    import torch
+    from sin3dm_tpu_torch.training import ae as TA
+    st, tcfg = trainer.state, trainer.tcfg
+    step = TA.make_train_step(trainer.acfg, tcfg, trainer.meta["threshold"])
+
+    def run(n):
+        for _ in range(n):
+            step(st, trainer.data, 0)
+        torch.cuda.synchronize()
+
+    with tf32(True):
+        run(warm)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run(n_steps)
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        fl = ae_step_flops(trainer.acfg, tcfg, trainer.meta["featmap_size"])
+        pts = tcfg.enc_batch_size * 1e3 / ms
+        print(f"ae step: {n_steps} steps at batch {tcfg.enc_batch_size}: "
+              f"{ms:.3f} ms per step (host clock, sync to sync), "
+              f"{pts:.1f} points/s; peak device memory {peak / 2 ** 30:.3f} "
+              f"GiB; K1 launches {counts['k1']}, K2 launches {counts['k2']} "
+              f"(want 0 and 0); {fl['step'] / 1e12:.4f} TFLOP per step "
+              f"(forward {fl['forward'] / 1e12:.4f}: heads "
+              f"{fl['heads_forward'] / 1e12:.4f}, plane convs "
+              f"{fl['convs_forward'] / 1e12:.4f}, encoders "
+              f"{fl['encoders_forward'] / 1e12:.4f}), "
+              f"{fl['step'] / ms / 1e9:.1f} TFLOP/s, bound at the TF32 "
+              f"peak {fl['bound_ms']:.3f} ms ({fl['bound_ms'] / ms:.1%} of "
+              "it)")
+        if counts["k1"] or counts["k2"]:
+            fail("ae step: a train step launched K1 or K2")
+        p = device_profile(lambda: run(prof_steps), prof_steps, "ae step",
+                           top=12)
+    if p:
+        print(f"ae step: device busy {p['busy_ms']:.3f} ms per step "
+              f"({p['busy_ms'] / ms:.1%} of the host-clock step, idle "
+              f"{1 - p['busy_ms'] / ms:.1%}), {p['ops_per_step']:.0f} "
+              "device operations per step")
+    return {"ms_per_step": ms, "points_per_s": pts, "peak_bytes": peak,
+            "launches": {"k1": counts["k1"], "k2": counts["k2"],
+                         "steps": n_steps},
+            "flops": fl["step"], "bound_ms": fl["bound_ms"], **p}
+
+
+def phase8() -> dict:
+    """8a-8f in a temporary directory."""
+    import torch
+    tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_ae_")
+    try:
+        npz = os.path.join(tmp, "shape.npz")
+        t0 = time.perf_counter()
+        synth = synth_shape_npz(npz)
+        print(f"ae data: written in {time.perf_counter() - t0:.1f} s")
+        step_check = ae_step_card_vs_host(npz)
+        trained = drive_ae_train(os.path.join(tmp, "tag"), npz)
+        res = trained.pop("result")
+        trainer = res.ae
+        del res
+        torch.cuda.empty_cache()
+        k2 = ae_k2_trained(trainer)
+        launches = ae_launches(trainer, {"k2": trained["launches"]["k2"],
+                                         "k2_shapes": trained["k2_shapes"]},
+                               tmp,
+                               enc_args()["rec_reso"])
+        timing = ae_step_time(trainer)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"data": synth, "step_card_vs_host": step_check, **trained,
+           "k2_trained": k2, "launches_by_stage": launches,
+           "step": timing}
+    print("ae: " + json.dumps(out, default=float))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -1545,7 +2248,13 @@ def main() -> int:
     gx, gy, gz = meta["grid_shape"]
     slab_rows = 8 * gy * gz
     k2 = check_k2(ae_params, slab_rows)
-    k2_mesh = check_k2_mesh_shapes(ae_params, slab_rows, 2 ** 20)
+    k2_shapes = check_k2_shapes(ae_params, (
+        ("geo slab", "geo_decoder", slab_rows),
+        ("texel chunk", "tex_decoder", 2 ** 20),
+        ("evaluate surface chunk", "geo_decoder", 2 ** 20)))
+    k2_mesh = {"geo_decoder": k2_shapes["geo slab"],
+               "tex_decoder": k2_shapes["texel chunk"]}
+    k2_surf = k2_shapes["evaluate surface chunk"]
 
     # 4. main path, default configuration
     vox = ["--tag", TAG, "--vox", "--n_samples", "2"]
@@ -1640,6 +2349,9 @@ def main() -> int:
         "step_card_vs_host": step_check, **trained,
         "profile": train_prof, "sample_launches": counts6}))
 
+    # 8. AE training at the encoding's full width
+    ae8 = phase8()
+
     # 7. results
     def row(name, source, replaces, launches, r, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1694,13 +2406,25 @@ def main() -> int:
             inpaint_launches=inpaint_counts["k1_forms"]),
         row("skip_mlp", "sin3dm_tpu_torch/csrc/fused_mlp.cu",
             "sin3dm_tpu/ops/fused_mlp.py:79",
-            main_counts["k2"] + mesh_counts["k2"], k2,
-            device_ms=k2["device_ms"],
+            main_counts["k2"] + mesh_counts["k2"] + ae8["launches"]["k2"],
+            k2, device_ms=k2["device_ms"],
             library_device_ms=k2["library_device_ms"],
             launches_vox=main_counts["k2"], launches_mesh=mesh_counts["k2"],
+            launches_ae_train=ae8["launches"]["k2"],
+            launches_ae_evaluate=ae8["launches_by_stage"]["evaluate"],
+            launches_ae_rec=ae8["launches_by_stage"]["rec"],
+            launches_ae_train_by_shape=ae8["launches_by_stage"][
+                "cli_by_shape"],
+            launches_ae_train_step=ae8["step"]["launches"]["k2"],
             mesh_shapes=k2_mesh,
             launches_train_step=trained["launches_train_step"]["k2"],
             launches_sample_after_training=counts6["k2"]),
+        row("skip_mlp geo head [2^20, 64] -> 1 (evaluate's surface chunk)",
+            "sin3dm_tpu_torch/csrc/fused_mlp.cu",
+            "sin3dm_tpu/ops/fused_mlp.py:79",
+            ae8["launches_by_stage"]["surface_chunk_geo"], k2_surf,
+            device_ms=k2_surf["device_ms"],
+            library_device_ms=k2_surf["library_device_ms"]),
     ]
     print("kernel times: K1 per UNet forward at batch 2 (8 triplane "
           "launches), K1' per stats-chained forward (3 act+stats + 3 "
@@ -1715,7 +2439,12 @@ def main() -> int:
           "at the mesh path's shapes under 'mesh_shapes'; "
           "'launches_train_step' counted over 80 steps of the CLI's train "
           "step (6b: cuDNN convs, so 0), 'launches_sample_after_training' "
-          "in the DDIM-10 --vox sample from the trained tag")
+          "in the DDIM-10 --vox sample from the trained tag; K2's "
+          "'launches' also counts the AE training run of phase 8c "
+          "('launches_ae_train': evaluate's and the rec mesh's), the AE "
+          "train step none; the row of K2's evaluate surface chunk "
+          "counts the launches of that shape in 8c's CLI run, by the "
+          "wrapper's count by shape")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

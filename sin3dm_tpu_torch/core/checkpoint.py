@@ -12,8 +12,12 @@ The diffusion trainer's optimiser state is written under the leaf paths
 that JAX's `save_pytree` gives `optax.adamw(...).init(params)`
 (`adamw_tree`): `0/.count` (int32), `0/.mu/<param path>`,
 `0/.nu/<param path>` and, where the learning rate is a schedule,
-`2/.count` (int32, the schedule's count).  The layout is written out
-here, not derived from optax.
+`2/.count` (int32, the schedule's count).  The AE trainer's optimiser,
+`optax.chain(adamw(schedule), multi_transform(geo: scale, tex:
+identity))`, nests that state one level deeper (`chained`):
+`0/0/.count`, `0/0/.mu/...`, `0/0/.nu/...`, `0/2/.count`; the
+multi-transform's state has no leaves.  The layout is written out here,
+not derived from optax.
 """
 
 from __future__ import annotations
@@ -107,23 +111,36 @@ def unflatten_like(like, leaves) -> Any:
     return build(like)
 
 
-def adamw_tree(count: int, mu, nu, sched_count: Optional[int] = None
-               ) -> Dict:
+def adamw_tree(count: int, mu, nu, sched_count: Optional[int] = None,
+               chained: bool = False) -> Dict:
     """The optimiser state in the leaf layout of JAX's
-    `optax.adamw(...).init(params)` (see the module doc)."""
+    `optax.adamw(...).init(params)`, or with `chained` of the AE's chain
+    around it (see the module doc)."""
     tree = {"0": {".count": np.asarray(count, np.int32), ".mu": mu,
                   ".nu": nu}}
     if sched_count is not None:
         tree["2"] = {".count": np.asarray(sched_count, np.int32)}
+    return {"0": tree} if chained else tree
+
+
+def _unlist(tree):
+    """A root of "0" alone comes back from `load_tree` as a list."""
+    if isinstance(tree, list):
+        return {str(i): v for i, v in enumerate(tree)}
     return tree
 
 
-def adamw_from_tree(tree) -> Tuple[int, Any, Any, Optional[int]]:
+def adamw_from_tree(tree, chained: bool = False
+                    ) -> Tuple[int, Any, Any, Optional[int]]:
     """(count, mu, nu, schedule count or None) from a tree that
-    `load_tree` read from an `adamw_tree` file; raises ValueError on
-    another layout."""
-    if isinstance(tree, list):        # a root of "0" alone is listified
-        tree = {str(i): v for i, v in enumerate(tree)}
+    `load_tree` read from an `adamw_tree` file (of the same `chained`);
+    raises ValueError on another layout."""
+    tree = _unlist(tree)
+    if chained:
+        if not isinstance(tree, dict) or set(tree) != {"0"}:
+            raise ValueError("not a chained adamw optimiser state: "
+                             f"top-level keys {sorted(tree)}")
+        tree = _unlist(tree["0"])
     adam = tree.get("0") if isinstance(tree, dict) else None
     if not isinstance(adam, dict) or set(adam) != {".count", ".mu", ".nu"} \
             or not set(tree) <= {"0", "2"}:

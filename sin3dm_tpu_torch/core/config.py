@@ -267,10 +267,24 @@ def ae_config_from_args(args):
 
 
 def ae_trainer_config_from_args(args):
-    """The decode's trainer settings; the texel wire stays at its default
-    (SIN3DM_TEXEL_WIRE selects another)."""
+    """The AE trainer's settings (the sampler's args carry the encoding
+    group too); the texel wire stays at its default (SIN3DM_TEXEL_WIRE
+    selects another)."""
     from ..training.ae import AETrainerConfig
-    return AETrainerConfig(sdf_renorm=bool(args.sdf_renorm))
+    return AETrainerConfig(
+        enc_batch_size=args.enc_batch_size,
+        enc_n_iters=args.enc_n_iters,
+        enc_lr=args.enc_lr,
+        enc_lr_decay=args.enc_lr_decay,
+        enc_lr_split=args.enc_lr_split,
+        vol_ratio=args.vol_ratio,
+        tex_threshold_ratio=args.tex_threshold_ratio,
+        tex_weight=args.tex_weight,
+        sdf_loss=args.sdf_loss,
+        tex_loss=args.tex_loss,
+        sdf_renorm=bool(args.sdf_renorm),
+        fm_reso=args.fm_reso,
+        steps_per_call=getattr(args, "steps_per_call", 1))
 
 
 def unet_config_from_args(args):

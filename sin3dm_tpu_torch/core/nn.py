@@ -1,13 +1,14 @@
 """Core NN primitives on channels-last tensors (counterpart of
 `sin3dm_tpu/core/nn.py`).
 
-Parameters keep JAX's layouts: conv weights `[kh, kw, Cin, Co]`, linear
-weights `[in, out]`.  Semantics follow the JAX functions line for line:
-GroupNorm32 statistics in float32, the sinusoidal embedding cos-first,
-bilinear resizes with half-pixel centres and no antialias, 2x average
-pooling VALID (an odd size drops its last row/column).  Every op is
-differentiable (no in-place write into a tensor autograd saved), so the
-UNet's training forward runs through them.
+Parameters keep JAX's layouts: conv weights `[kh, kw, Cin, Co]` (3-D:
+`[kd, kh, kw, Cin, Co]`), linear weights `[in, out]`.  Semantics follow
+the JAX functions line for line: GroupNorm32 statistics in float32, the
+sinusoidal embedding cos-first, bilinear and trilinear resizes with
+half-pixel centres and no antialias, 2x average pooling VALID (an odd
+size drops its last row/column).  Every op is differentiable (no
+in-place write into a tensor autograd saved), so the UNet's and the
+AE's training forwards run through them.
 """
 
 from __future__ import annotations
@@ -100,6 +101,18 @@ def conv2d(p: Dict, x: torch.Tensor, padding="SAME") -> torch.Tensor:
         y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1),
                      padding=(kh // 2, kw // 2))
         y = _nhwc(y)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def conv3d(p: Dict, x: torch.Tensor, stride: int = 2,
+           padding: int = 1) -> torch.Tensor:
+    """Conv of `[B, X, Y, Z, C]` with a DHWIO weight `[kd, kh, kw, Cin,
+    Co]`; the default is the AE encoder's k4/s2/p1 (`F.conv3d`)."""
+    w = p["w"].to(x.dtype).permute(4, 3, 0, 1, 2)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
+                 padding=padding).permute(0, 2, 3, 4, 1)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -231,6 +244,16 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
                       mode="bilinear", align_corners=False, antialias=False)
     y = _nhwc(y)
     return y[0] if squeeze else y
+
+
+def resize_trilinear(x: torch.Tensor,
+                     out_dhw: Tuple[int, int, int]) -> torch.Tensor:
+    """Trilinear resize of `[B, D, H, W, C]`: half-pixel centres
+    (align_corners=False), no antialias, either direction."""
+    y = F.interpolate(x.permute(0, 4, 1, 2, 3),
+                      size=tuple(int(s) for s in out_dhw), mode="trilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,12 @@
-"""Triplane shape autoencoder, inference decode (counterpart of
+"""Triplane shape autoencoder (counterpart of
 `sin3dm_tpu/models/autoencoder.py`).
 
-`process_planes` runs the per-branch conv blocks once per triplane;
+`init_autoencoder` builds the parameters (torch's default inits, drawn
+from an explicit generator); `encode` turns the dense sdf(+texture)
+volume into a triplane (two strided Conv3d, three axis means, a shared
+unaffine InstanceNorm, tanh(x/2)); `forward` is the training forward,
+encode then decode at points with the plain fp32 heads, differentiable
+end to end.  `process_planes` runs the per-branch conv blocks once per triplane;
 `decode_grid_dense` decodes the whole AABB voxel-centre grid without
 gathers: voxel centres are exactly the half-pixel sample positions of
 `grid_sample(align_corners=False)`, so sampling a plane over the grid is
@@ -11,8 +16,8 @@ of the broadcast sum of the three resized planes; `geo_only` with
 samples the planes at world points, `decode_texels*` gives uint8 texel
 colours, over points or over the run-length texel wire.  Skip heads go
 through the kernel K2 (`ops/fused_mlp.py`) with bf16 operands by default
-(`SIN3DM_DECODE_BF16=0` keeps them fp32).  The encoder comes with a later
-slice (ROADMAP.md).
+(`SIN3DM_DECODE_BF16=0` keeps them fp32); K2 has no backward, so only
+the decode entry points take it.
 """
 
 from __future__ import annotations
@@ -67,6 +72,44 @@ def sinusoidal_encode(x: torch.Tensor, max_deg: int,
     return latent
 
 
+def posenc_dim(cin: int, max_deg: int) -> int:
+    return cin if max_deg == 0 else cin * (1 + 2 * max_deg)
+
+
+def _mlp_init(gen: torch.Generator, cin: int, cout: int, hidden: int,
+              n_hidden: int) -> Dict:
+    """Plain MLP: Linear+ReLU x (1 + n_hidden), Linear."""
+    layers = [nn.torch_linear_init(gen, cin, hidden)]
+    layers += [nn.torch_linear_init(gen, hidden, hidden)
+               for _ in range(n_hidden)]
+    layers.append(nn.torch_linear_init(gen, hidden, cout))
+    return {"layers": layers}
+
+
+def _mlp_skip_init(gen: torch.Generator, cin: int, cout: int, hidden: int,
+                   n_hidden: int) -> Dict:
+    """Two MLP halves with the input concatenated at the midpoint."""
+    first = [nn.torch_linear_init(gen, cin, hidden)]
+    first += [nn.torch_linear_init(gen, hidden, hidden)
+              for _ in range(n_hidden // 2)]
+    second = [nn.torch_linear_init(gen, cin + hidden, hidden)]
+    second += [nn.torch_linear_init(gen, hidden, hidden)
+               for _ in range(n_hidden // 2 - 1)]
+    second.append(nn.torch_linear_init(gen, hidden, cout))
+    return {"first": first, "second": second}
+
+
+def _mlp_skip_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The skip head as plain linears (the training form)."""
+    h = x
+    for lp in p["first"]:
+        h = torch.relu(nn.linear(lp, h))
+    h = torch.cat([x, h], dim=-1)
+    for lp in p["second"][:-1]:
+        h = torch.relu(nn.linear(lp, h))
+    return nn.linear(p["second"][-1], h)
+
+
 def _mlp_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = x
     for lp in p["layers"][:-1]:
@@ -83,27 +126,51 @@ def decode_mxu_dtype() -> torch.dtype:
     return torch.bfloat16
 
 
-def _head_apply(cfg: AEConfig, head: Dict, x: torch.Tensor) -> torch.Tensor:
-    """A decoder head: skip heads through K2, the 'base' plain MLP as
-    plain linears."""
+def _head_apply(cfg: AEConfig, head: Dict, x: torch.Tensor,
+                fused: bool = True) -> torch.Tensor:
+    """A decoder head: skip heads through K2 where `fused` (inference),
+    else as plain linears (training: they read the raw "first"/"second"
+    leaves, never the "k2" pack); the 'base' plain MLP as plain
+    linears."""
     if cfg.enc_net_type == "base":
         return _mlp_apply(head, x)
-    return skip_mlp(head, x, mxu_dtype=decode_mxu_dtype())
+    if fused:
+        return skip_mlp(head, x, mxu_dtype=decode_mxu_dtype())
+    return _mlp_skip_apply(head, x)
 
 
 # ---------------------------------------------------------------------------
 # TriplaneGroupResnetBlock, per-plane form
 # ---------------------------------------------------------------------------
 
+_PLANES = ("xy", "xz", "yz")
+
+
+def _group_block_init(gen: torch.Generator, cin: int, cout: int,
+                      ks: int) -> Dict:
+    """Per-plane ks x ks in conv, affine InstanceNorm, zero out conv, and
+    a 1x1 shortcut where the width changes."""
+    kshape = (ks, ks, cin, cout)
+    dev = gen.device
+    p = {"in_conv": {k: nn.torch_conv_init(gen, kshape) for k in _PLANES},
+         "norm": {k: nn.group_norm_init(cout, dev) for k in _PLANES},
+         "out_conv": {k: nn.zero_conv_init((ks, ks, cout, cout), dev)
+                      for k in _PLANES}}
+    if cin != cout:
+        p["shortcut"] = {k: nn.torch_conv_init(gen, (1, 1, cin, cout))
+                         for k in _PLANES}
+    return p
+
+
 def _tconv(p: Dict, t: Triplane) -> Triplane:
     return Triplane(*[nn.conv2d(p[k], x)
-                      for k, x in zip(("xy", "xz", "yz"), t)])
+                      for k, x in zip(_PLANES, t)])
 
 
 def _tinorm(p: Dict, t: Triplane) -> Triplane:
     return Triplane(*[nn.instance_norm(x, eps=1e-6, gamma=p[k]["g"],
                                        beta=p[k]["b"])
-                      for k, x in zip(("xy", "xz", "yz"), t)])
+                      for k, x in zip(_PLANES, t)])
 
 
 def _group_block_apply(p: Dict, t: Triplane, input_act: bool,
@@ -120,11 +187,83 @@ def _group_block_apply(p: Dict, t: Triplane, input_act: bool,
     return h + sc
 
 
-@torch.no_grad()
+def init_autoencoder(gen: torch.Generator, cfg: AEConfig) -> Dict:
+    """The AE's parameters on `gen`'s device, in the JAX package's tree
+    layout (`init_autoencoder`: the same keys, list positions and
+    shapes; the values are torch's draws)."""
+    p: Dict = {
+        "geo_encoder": nn.torch_conv_init(gen, (4, 4, 4, 1, cfg.fdim_geo)),
+        "geo_convs": _group_block_init(gen, cfg.fdim_geo, cfg.fdim_up, 5),
+    }
+    mlp_init = _mlp_init if cfg.enc_net_type == "base" else _mlp_skip_init
+    p["geo_decoder"] = mlp_init(gen, cfg.fdim_up, 1, cfg.hidden_dim,
+                                cfg.n_hidden_layers)
+    if cfg.use_tex:
+        p["tex_encoder"] = nn.torch_conv_init(
+            gen, (4, 4, 4, cfg.tex_channels + 1, cfg.fdim_tex))
+        tex_in = posenc_dim(cfg.fdim_up, cfg.posenc)
+        if cfg.enc_net_type == "pbr":
+            p["tex_convs"] = [
+                _group_block_init(gen, cfg.fdim_tex, cfg.fdim_up, 3),
+                _group_block_init(gen, cfg.fdim_up, cfg.fdim_up, 3)]
+            for k, c in (("rgb_decoder", 3), ("mr_decoder", 2),
+                         ("normal_decoder", 3)):
+                p[k] = mlp_init(gen, tex_in, c, cfg.hidden_dim,
+                                cfg.n_hidden_layers)
+        else:
+            p["tex_convs"] = [
+                _group_block_init(gen, cfg.fdim_tex, cfg.fdim_up, 5)]
+            p["tex_decoder"] = mlp_init(gen, tex_in, cfg.tex_channels,
+                                        cfg.hidden_dim, cfg.n_hidden_layers)
+    return p
+
+
+GEO_KEYS = ("geo_encoder", "geo_convs", "geo_decoder")
+
+
+def geo_param_labels(params: Dict) -> Dict:
+    """'geo' or 'tex' for every leaf (the split-lr optimiser's groups)."""
+    def label(node, lab):
+        if isinstance(node, dict):
+            return {k: label(v, lab) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [label(v, lab) for v in node]
+        return lab
+    return {k: label(v, "geo" if k in GEO_KEYS else "tex")
+            for k, v in params.items()}
+
+
+def encode(params: Dict, cfg: AEConfig, vol: torch.Tensor) -> Triplane:
+    """vol `[B, X, Y, Z, 1 + tex_channels]` (sdf first) -> triplane of
+    `[B, ., ., feat_channels]`: the geometry encoder sees the sdf channel,
+    the texture encoder every channel; the means over z, y and x give the
+    xy, xz and yz planes, each squashed by tanh(InstanceNorm(., 1e-5) /
+    2)."""
+    vol = vol.float()
+    feat = nn.conv3d(params["geo_encoder"], vol[..., :1])
+    if cfg.use_tex:
+        feat = torch.cat([feat, nn.conv3d(params["tex_encoder"], vol)],
+                         dim=-1)
+
+    def squash(a):
+        return torch.tanh(nn.instance_norm(a, eps=1e-5) * 0.5)
+
+    return Triplane(squash(feat.mean(dim=3)), squash(feat.mean(dim=2)),
+                    squash(feat.mean(dim=1)))
+
+
+def forward(params: Dict, cfg: AEConfig, vol: torch.Tensor,
+            pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """The training forward: encode the volume, decode world points
+    `[N, 3]` with the plain heads -> `[N, 1 + tex_channels]`."""
+    geo, tex = process_planes(params, cfg, encode(params, cfg, vol))
+    return decode_points(params, cfg, geo, tex, pts, aabb, fused=False)
+
+
 def process_planes(params: Dict, cfg: AEConfig,
                    feat: Triplane) -> Tuple[Triplane, Triplane]:
     """Run the geometry and texture conv blocks once per triplane
-    (`[1, ., ., C]` planes, fp32)."""
+    (`[1, ., ., C]` planes, fp32); differentiable."""
     geo = feat.map(lambda a: a[..., :cfg.fdim_geo])
     geo = _group_block_apply(params["geo_convs"], geo, input_act=False)
     tex = None
@@ -138,39 +277,39 @@ def process_planes(params: Dict, cfg: AEConfig,
     return geo, tex
 
 
-
-
 def normalize_points(pts: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     """Map points from the AABB `[6]` (lo, hi) to [-1, 1]^3."""
     lo, hi = aabb[:3], aabb[3:]
     return 2.0 * (pts - lo) / (hi - lo) - 1.0
 
 
-def _tex_heads(params: Dict, cfg: AEConfig, h: torch.Tensor) -> torch.Tensor:
+def _tex_heads(params: Dict, cfg: AEConfig, h: torch.Tensor,
+               fused: bool = True) -> torch.Tensor:
     """Texture heads over texture features `[N, C]`: PBR's rgb/mr/normal
     heads side by side (no sigmoid), else sigmoid of the tex head."""
     if cfg.posenc > 0:
         h = sinusoidal_encode(h, cfg.posenc)
     if cfg.enc_net_type == "pbr":
-        return torch.cat([_head_apply(cfg, params[k], h)
+        return torch.cat([_head_apply(cfg, params[k], h, fused)
                           for k in ("rgb_decoder", "mr_decoder",
                                     "normal_decoder")], dim=-1)
-    return torch.sigmoid(_head_apply(cfg, params["tex_decoder"], h))
+    return torch.sigmoid(_head_apply(cfg, params["tex_decoder"], h, fused))
 
 
-@torch.no_grad()
 def decode_points(params: Dict, cfg: AEConfig, geo_planes: Triplane,
-                  tex_planes, pts: torch.Tensor,
-                  aabb: torch.Tensor) -> torch.Tensor:
+                  tex_planes, pts: torch.Tensor, aabb: torch.Tensor,
+                  fused: bool = True) -> torch.Tensor:
     """World points `[N, 3]` -> `[N, 1 + tex_channels]` (sdf first); the
-    planes are `process_planes`' outputs with a batch dim of 1."""
+    planes are `process_planes`' outputs with a batch dim of 1.  Skip
+    heads through K2 where `fused` (callers run it under no_grad), else
+    plain and differentiable."""
     x = normalize_points(pts, aabb)
     sdf = _head_apply(cfg, params["geo_decoder"], sample_triplane_features(
-        geo_planes.map(lambda a: a[0]), x))
+        geo_planes.map(lambda a: a[0]), x), fused)
     if not cfg.use_tex:
         return sdf
     h_tex = sample_triplane_features(tex_planes.map(lambda a: a[0]), x)
-    return torch.cat([sdf, _tex_heads(params, cfg, h_tex)], dim=-1)
+    return torch.cat([sdf, _tex_heads(params, cfg, h_tex, fused)], dim=-1)
 
 
 def grid_slab_features(planes: Triplane, grid_res: Tuple[int, int, int],

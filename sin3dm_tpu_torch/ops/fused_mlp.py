@@ -12,6 +12,9 @@ and raises if it cannot; on a CPU tensor it computes the plain version
 of `pack_mlp_weights`: from the head's "k2" entry where the head was
 packed once (`ops.pack_params`, where the model is built), else packed
 per call.
+
+`skip_mlp.launches` counts every kernel launch, and
+`skip_mlp.shape_launches` counts them by shape, `(rows, cin, cout)`.
 """
 
 from __future__ import annotations
@@ -256,11 +259,27 @@ def _launch_f32(params: Dict, x: torch.Tensor, out: torch.Tensor) -> None:
         raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
 
 
+def _refuse_grad(params: Dict, x: torch.Tensor) -> None:
+    """Raise where autograd would record a K2 call: grad mode on and x or
+    a weight of the head requiring grad."""
+    if not torch.is_grad_enabled():
+        return
+    layers = params["first"] + params["second"]
+    if x.requires_grad or any(v.requires_grad for lp in layers
+                              for v in lp.values()):
+        raise RuntimeError(
+            "skip_mlp: K2 has no backward; call it under torch.no_grad "
+            "(the AE's training forward takes the plain heads)")
+
+
 def skip_mlp(params: Dict, x: torch.Tensor,
              mxu_dtype=torch.float32) -> torch.Tensor:
     """K2.  x `[N, cin]` fp32 -> `[N, cout]` fp32.  `params` is a skip
     head ("first", "second" lists of {"w" [K, N], "b" [N]}), with "k2",
-    its `pack_mlp_weights`, where it was packed once."""
+    its `pack_mlp_weights`, where it was packed once.  K2 has no
+    backward: the call raises where autograd would record it, on either
+    device (the training forward takes the plain heads instead)."""
+    _refuse_grad(params, x)
     if x.device.type == "cpu":
         return skip_mlp_reference(params, x, mxu_dtype)
     if x.device.type != "cuda":
@@ -281,7 +300,10 @@ def skip_mlp(params: Dict, x: torch.Tensor,
     else:
         _launch_f32(params, x, out)
     skip_mlp.launches += 1
+    shape = (x.shape[0], cin, cout)
+    skip_mlp.shape_launches[shape] = skip_mlp.shape_launches.get(shape, 0) + 1
     return out
 
 
 skip_mlp.launches = 0
+skip_mlp.shape_launches = {}

@@ -1,11 +1,35 @@
-"""Shape-autoencoder trainer, inference subset (counterpart of
-`sin3dm_tpu/training/ae.py`): load the trained weights, decode triplanes
-to dense grids and voxel files, and run the mesh path — a dense int8 sdf
+"""Shape-autoencoder trainer (counterpart of `sin3dm_tpu/training/ae.py`):
+fit the triplane AE to one shape, evaluate it, checkpoint it, and decode
+triplanes to dense grids, voxel files and textured meshes.
+
+Training.  `load_ae_data` reads the mesh sampler's npz onto the device:
+the dense sdf(+texture) volume the encoder sees every step (trilinearly
+resized to twice the feature-map size where it differs) and the point
+tables, shuffled once on the host (`host_shuffle_permutations`).  A train
+step takes 8 contiguous windows at random offsets from each shuffled
+table (grid points, near-surface points), runs `models.autoencoder.
+forward` (plain heads: K2 has no backward), the weighted-L1 sdf loss and
+the masked texture loss, and AdamW over flat fp32 buffers
+(`training.adamw`) as JAX's optax chain computes it: `optax.adamw` (b1
+0.9, b2 0.999, eps 1e-8, weight decay 0.01 on every leaf) at lr(k) =
+enc_lr * gamma^k in float32, gamma = enc_lr_decay^(1 / enc_n_iters), k
+the schedule's count before it advances; the geometry leaves' whole
+update then scaled by `enc_lr_split`.  No NaN guard and no EMA, as in
+JAX.  Step k's window offsets come from a generator seeded from (seed,
+k) alone (`core.rng.step_generator`), so a resumed run draws what an
+unbroken one would; tests pass JAX's draws in (`offsets=`).  Checkpoints
+(`ckpt_latest.pth` on the save cadence, `ckpt_final.pth` at the end) hold
+params, the optimiser state in JAX's leaf layout
+(`core.checkpoint.adamw_tree(chained=True)`) and the step.
+
+Decode.  Dense grids and voxel files, and the mesh path: a dense int8 sdf
 grid on the device, sent to the host as the sparse near-surface wire,
 marching cubes, decimation, UV atlas and raster on the host, texel
 colours decoded on the device over the run-length texel wire, and the
-textured mesh written by a background export worker.  Training and
-evaluation come with later slices (ROADMAP.md).
+textured mesh written by a background export worker.  The skip heads run
+through K2, which reads the packed weights (`ops.pack_params`): the
+trainer packs them again after every parameter update that precedes a
+decode, and no checkpoint holds a pack.
 
 Device work is queued on the current stream; results travel to the host
 by copies into pinned memory that do not block (`_Fetch`), and the host
@@ -15,30 +39,49 @@ concurrent decode threads apart.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..compat.from_jax import ae_params_from_jax
 from ..core import checkpoint as ckpt
+from ..core import logger
+from ..core.rng import step_generator
 from ..core.triplane import Triplane
 from ..dataio.grid import grid_resolutions, sample_grid_points_aabb
 from ..geometry import meshio, meshproc, native, uvatlas
 from ..models import autoencoder as ae
 from ..ops import pack_params
 from ..ops import sparse_grid as _sg
+from . import adamw
+
+WEIGHT_DECAY = 0.01
+N_WINDOWS = 8          # contiguous windows per point table per batch
 
 
 @dataclass
 class AETrainerConfig:
-    """The trainer settings the decode reads (`args.json`)."""
+    enc_batch_size: int = 65536
+    enc_n_iters: int = 25000
+    enc_lr: float = 5e-3
+    enc_lr_decay: float = 0.1          # final lr ratio
+    enc_lr_split: float = 0.2          # geo-params lr multiplier
+    vol_ratio: float = 0.1             # fraction of grid points per batch
+    tex_threshold_ratio: float = 0.999
+    tex_weight: float = 1.0
+    sdf_loss: str = "weightedl1"       # l1 | weightedl1
+    tex_loss: str = "l1"               # l1 | l2 | huber
     # the decoder emits threshold-normalized sdf values (int8 scale 1.0)
     sdf_renorm: bool = False
+    fm_reso: int = 128
+    # train steps per call of the step function
+    steps_per_call: int = 1
     # texture-bake point wire (SIN3DM_TEXEL_WIRE overrides):
     #   "runs" (default): per-row position spans expanded on the device,
     #       compact pack of u16 starts + f16 normalized steps, 16 B/run,
@@ -48,11 +91,376 @@ class AETrainerConfig:
     texel_wire: str = "runs"
 
 
+class AEData(NamedTuple):
+    """The training data on the device (the mesh sampler's npz schema)."""
+    input_grid: torch.Tensor     # [1, X, Y, Z, 1+Ct] (sdf first)
+    pts_grid: torch.Tensor       # [Ng, 3]
+    sdf_grid: torch.Tensor       # [Ng, 1] clamped to +-threshold
+    pts_near_surf: torch.Tensor  # [Ns, 3]
+    sdf_near_surf: torch.Tensor  # [Ns, 1]
+    tex_grid: Optional[torch.Tensor]
+    tex_near_surf: Optional[torch.Tensor]
+    pts_on_surf: Optional[torch.Tensor]
+    tex_on_surf: Optional[torch.Tensor]
+    aabb: torch.Tensor           # [6]
+
+
 class TexelRuns(NamedTuple):
     """Run-length texel wire payload (`geometry/native.py
     rasterize_uv_runs`): `[n, 7]` float32 rows of (start xyz, step xyz,
     length) in row-major masked order."""
     runs: np.ndarray
+
+
+SHUFFLE_SEED = 12345
+
+
+def host_shuffle_permutations(n_grid: int, n_near: int):
+    """(grid_perm, near_perm): the one host shuffle of the point tables;
+    `evaluate` reorders its grid-ordered predictions by grid_perm."""
+    rng = np.random.default_rng(SHUFFLE_SEED)
+    return rng.permutation(n_grid), rng.permutation(n_near)
+
+
+def compute_featmap_size(grid_shape, fm_reso: int) -> Tuple[int, int, int]:
+    """Per-axis feature-map size scaled by the grid's extent, floored to
+    even."""
+    g = np.array(grid_shape[:3], dtype=np.float64)
+    fm = (g * (fm_reso / g.max())).astype(np.int64)
+    return tuple(int(x // 2 * 2) for x in fm)
+
+
+def load_ae_data(npz_path: str, cfg: AETrainerConfig, device,
+                 data_type: str = "sdftex"):
+    """Read the sampler npz onto `device`; returns (AEData, meta,
+    grid_perm).  SDFs are clamped to the stored threshold (and divided
+    by it under sdf_renorm), the volume is resized to 2x the feature-map
+    size where it differs, on-surface points are capped at 2M (numpy's
+    default_rng(0)), and the point tables are shuffled once."""
+    from ..core.nn import resize_trilinear
+
+    data = np.load(npz_path)
+    aabb = np.asarray(data["aabb"], np.float32)
+    threshold = float(data["threshold"])
+    meta = {
+        "aabb": aabb.tolist(),
+        "threshold": threshold,
+        "Ka": np.asarray(data["Ka"]).tolist() if "Ka" in data else [0, 0, 0],
+        "Kd": np.asarray(data["Kd"]).tolist() if "Kd" in data else [1, 1, 1],
+        "Ks": np.asarray(data["Ks"]).tolist() if "Ks" in data
+        else [0.4, 0.4, 0.4],
+        "Ns": np.asarray(data["Ns"]).tolist() if "Ns" in data else 10,
+    }
+    pts_grid = np.asarray(data["pts_grid"], np.float32)
+    sdf_grid = np.asarray(data["sdf_grid"], np.float32)
+    fm_size = compute_featmap_size(pts_grid.shape, cfg.fm_reso)
+    meta["featmap_size"] = list(fm_size)
+    meta["grid_shape"] = list(pts_grid.shape[:3])
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    use_tex = data_type != "sdf"
+    if use_tex:
+        tex_grid = np.asarray(data["tex_grid"], np.float32)
+        vol = np.concatenate([sdf_grid[..., None], tex_grid], axis=-1)
+    else:
+        vol = sdf_grid[..., None]
+    vol_d = dev(vol)[None]                     # [1, X, Y, Z, C]
+    required = tuple(x * 2 for x in fm_size)
+    if vol.shape[:3] != required:
+        vol_d = resize_trilinear(vol_d, required).contiguous()
+    del vol
+
+    def clamp(a):
+        return np.clip(a, -threshold, threshold)
+    sdf_grid_flat = clamp(sdf_grid.reshape(-1, 1))
+    pts_near = np.asarray(data["pts_near_surf"], np.float32).reshape(-1, 3)
+    sdf_near = clamp(np.asarray(data["sdf_near_surf"],
+                                np.float32).reshape(-1, 1))
+    if cfg.sdf_renorm:
+        sdf_grid_flat = sdf_grid_flat / threshold
+        sdf_near = sdf_near / threshold
+    grid_perm, near_perm = host_shuffle_permutations(
+        sdf_grid_flat.shape[0], pts_near.shape[0])
+
+    tex_g = tex_n = pts_s = tex_s = None
+    if use_tex:
+        tc = tex_grid.shape[-1]
+        tex_g = dev(tex_grid.reshape(-1, tc)[grid_perm])
+        tex_n = dev(np.asarray(data["tex_near_surf"],
+                               np.float32).reshape(-1, tc)[near_perm])
+        pts_s_np = np.asarray(data["pts_on_surf"], np.float32).reshape(-1, 3)
+        tex_s_np = np.asarray(data["tex_on_surf"],
+                              np.float32).reshape(-1, tc)
+        if pts_s_np.shape[0] > 2_000_000:
+            idx = np.random.default_rng(0).permutation(
+                pts_s_np.shape[0])[:2_000_000]
+            pts_s_np, tex_s_np = pts_s_np[idx], tex_s_np[idx]
+        pts_s, tex_s = dev(pts_s_np), dev(tex_s_np)
+
+    ae_data = AEData(
+        input_grid=vol_d,
+        pts_grid=dev(pts_grid.reshape(-1, 3)[grid_perm]),
+        sdf_grid=dev(sdf_grid_flat[grid_perm]),
+        pts_near_surf=dev(pts_near[near_perm]),
+        sdf_near_surf=dev(sdf_near[near_perm]),
+        tex_grid=tex_g, tex_near_surf=tex_n,
+        pts_on_surf=pts_s, tex_on_surf=tex_s,
+        aabb=dev(aabb))
+    return ae_data, meta, grid_perm
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def sdf_loss_fn(kind: str, pred: torch.Tensor,
+                gt: torch.Tensor) -> torch.Tensor:
+    if kind == "l1":
+        return (pred - gt).abs().mean()
+    if kind == "weightedl1":
+        weight = 1.0 + 0.5 * torch.sign(gt) * torch.sign(gt - pred)
+        return ((pred - gt).abs() * weight).mean()
+    raise NotImplementedError(kind)
+
+
+def masked_tex_loss_fn(kind: str, pred: torch.Tensor, gt: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the masked rows only; 0 where the mask is empty."""
+    m = mask.to(pred.dtype)[:, None]
+    n = torch.clamp(m.sum() * pred.shape[-1], min=1.0)
+    if kind == "l1":
+        e = (pred - gt).abs()
+    elif kind == "l2":
+        e = (pred - gt) ** 2
+    elif kind == "huber":
+        delta = 0.1
+        a = (pred - gt).abs()
+        e = torch.where(a < delta, 0.5 * a ** 2 / delta, a - 0.5 * delta)
+    else:
+        raise NotImplementedError(kind)
+    return (e * m).sum() / n
+
+
+# ---------------------------------------------------------------------------
+# The optimiser and the train step
+# ---------------------------------------------------------------------------
+
+def learning_rate(cfg: AETrainerConfig, count: int) -> np.float32:
+    """The schedule at count k, in float32: enc_lr * gamma^k."""
+    gamma = np.float32(cfg.enc_lr_decay ** (1.0 / cfg.enc_n_iters))
+    return np.float32(cfg.enc_lr) * np.power(gamma, np.float32(count))
+
+
+@dataclass
+class AETrainState:
+    """Parameters and AdamW moments as flat fp32 buffers in the parameter
+    tree's flatten order; `params` is the tree of views of `flat` that
+    the model reads (leaves that require grad); `scale` is each element's
+    factor after AdamW (enc_lr_split on geometry leaves, 1 elsewhere), or
+    None without a split."""
+    params: Dict
+    flat: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+    scale: Optional[torch.Tensor]
+    count: int                    # optax ScaleByAdamState.count
+    sched_count: int              # ScaleByScheduleState.count
+    step: int
+
+    def tree(self, flat: torch.Tensor) -> Dict:
+        """`flat` (a buffer of this state's layout) as a detached tree."""
+        return adamw.views(flat.detach(), self.params)
+
+
+def strip_packs(tree):
+    """A parameter tree without the kernels' weight packs ("k1", "k2")."""
+    if isinstance(tree, dict):
+        return {k: strip_packs(v) for k, v in tree.items()
+                if k not in ("k1", "k2")}
+    if isinstance(tree, (list, tuple)):
+        return [strip_packs(v) for v in tree]
+    return tree
+
+
+def init_train_state(params: Dict, cfg: AETrainerConfig) -> AETrainState:
+    """A fresh state whose buffers copy `params` (a tree of tensors)."""
+    params = strip_packs(params)
+    device = ckpt.leaves_with_paths(params)[0][1].device
+    flat = adamw.flatten(params, device).detach().clone()
+    scale = None
+    if cfg.enc_lr_split > 0:
+        labels = ckpt.leaves_with_paths(ae.geo_param_labels(params))
+        scale = torch.cat([
+            torch.full((v.numel(),), float(cfg.enc_lr_split) if lab == "geo"
+                       else 1.0, dtype=torch.float32, device=device)
+            for (_, v), (_, lab) in zip(ckpt.leaves_with_paths(params),
+                                        labels)])
+    return AETrainState(params=adamw.param_views(flat, params), flat=flat,
+                        mu=torch.zeros_like(flat), nu=torch.zeros_like(flat),
+                        scale=scale, count=0, sched_count=0, step=0)
+
+
+def opt_tree(state: AETrainState) -> Dict:
+    """The optimiser state in JAX's leaf layout (numpy leaves): the chain's
+    where there is a geometry split."""
+    return adamw.opt_tree(state, chained=state.scale is not None)
+
+
+def load_opt_tree(state: AETrainState, tree) -> None:
+    """Set the state's moments and counts from JAX's leaf layout;
+    ValueError where the tree does not fit."""
+    adamw.load_opt_tree(state, tree, chained=state.scale is not None)
+
+
+def apply_grads(state: AETrainState, g: torch.Tensor,
+                tcfg: AETrainerConfig) -> None:
+    """AdamW with weight decay, the lr schedule and the geometry split on
+    the flat buffers, from the flat gradient `g` (see the module doc)."""
+    adamw.update(state, g, learning_rate(tcfg, state.sched_count),
+                 WEIGHT_DECAY, scale=state.scale)
+
+
+def window_sizes(total: int) -> List[int]:
+    """Rows of each of the N_WINDOWS windows that make `total` rows."""
+    chunk = max(total // N_WINDOWS, 1)
+    return [chunk] * (N_WINDOWS - 1) + [total - chunk * (N_WINDOWS - 1)]
+
+
+def batch_split(tcfg: AETrainerConfig) -> Tuple[int, int]:
+    """(grid rows, near-surface rows) of a batch."""
+    n_grid = int(tcfg.enc_batch_size * tcfg.vol_ratio)
+    return n_grid, tcfg.enc_batch_size - n_grid
+
+
+def draw_offsets(tcfg: AETrainerConfig, data: AEData, seed: int,
+                 step: int) -> Tuple[List[int], List[int]]:
+    """Step `step`'s window offsets (grid, near-surface), drawn on the host
+    from the generator of (seed, step): each uniform over the offsets
+    where its largest window fits."""
+    g = step_generator(seed, step, "cpu")
+    out = []
+    for total, n_rows in zip(batch_split(tcfg), (
+            data.pts_grid.shape[0], data.pts_near_surf.shape[0])):
+        hi = n_rows - max(window_sizes(total)) + 1
+        out.append(torch.randint(0, hi, (N_WINDOWS,), generator=g).tolist())
+    return out[0], out[1]
+
+
+def sample_batch(tcfg: AETrainerConfig, data: AEData, use_tex: bool,
+                 offsets: Tuple[Sequence[int], Sequence[int]]):
+    """(points, sdf, texture or None) of a batch: the windows at `offsets`
+    of the shuffled grid tables, then those of the near-surface tables."""
+    def windows(arrs, total, offs):
+        sizes = window_sizes(total)
+        return [torch.cat([a[int(o):int(o) + n] for o, n in
+                           zip(offs, sizes)]) for a in arrs]
+
+    g_arrs = [data.pts_grid, data.sdf_grid]
+    s_arrs = [data.pts_near_surf, data.sdf_near_surf]
+    if use_tex:
+        g_arrs.append(data.tex_grid)
+        s_arrs.append(data.tex_near_surf)
+    n_grid, n_surf = batch_split(tcfg)
+    g_out = windows(g_arrs, n_grid, offsets[0])
+    s_out = windows(s_arrs, n_surf, offsets[1])
+    cat = [torch.cat([a, b]) for a, b in zip(g_out, s_out)]
+    return cat[0], cat[1], (cat[2] if use_tex else None)
+
+
+def ae_losses(params: Dict, acfg: ae.AEConfig, tcfg: AETrainerConfig,
+              data: AEData, threshold: float, pts, gt_sdf,
+              gt_tex) -> Dict[str, torch.Tensor]:
+    """The loss terms of one batch and their sum under "loss"."""
+    pred = ae.forward(params, acfg, data.input_grid, pts, data.aabb)
+    losses = {"sdf_loss": sdf_loss_fn(tcfg.sdf_loss, pred[..., :1], gt_sdf)}
+    if acfg.use_tex:
+        tex_thr = (1.0 if tcfg.sdf_renorm else threshold) \
+            * tcfg.tex_threshold_ratio
+        mask = gt_sdf[:, 0].abs() < tex_thr
+        pred_tex = pred[..., 1:]
+        parts = ({"rgb_loss": slice(0, 3), "mr_loss": slice(3, 5),
+                  "normal_loss": slice(5, None)}
+                 if acfg.data_type == "sdfpbr" else {"tex_loss": slice(None)})
+        for k, sl in parts.items():
+            losses[k] = masked_tex_loss_fn(
+                tcfg.tex_loss, pred_tex[:, sl], gt_tex[:, sl],
+                mask) * tcfg.tex_weight
+    losses["loss"] = sum(losses.values())
+    return losses
+
+
+def compute_grads(state: AETrainState, acfg: ae.AEConfig,
+                  tcfg: AETrainerConfig, data: AEData, threshold: float,
+                  offsets):
+    """(detached loss terms, flat gradient of the total) at the state's
+    parameters on the batch at `offsets`."""
+    pts, sdf, tex = sample_batch(tcfg, data, acfg.use_tex, offsets)
+    terms = ae_losses(state.params, acfg, tcfg, data, threshold, pts, sdf,
+                      tex)
+    leaves = [v for _, v in ckpt.leaves_with_paths(state.params)]
+    grads = torch.autograd.grad(terms["loss"], leaves, allow_unused=True)
+    g = torch.cat([(torch.zeros_like(v) if gr is None else gr).reshape(-1)
+                   for v, gr in zip(leaves, grads)])
+    return {k: v.detach() for k, v in terms.items()}, g
+
+
+def make_train_step(acfg: ae.AEConfig, tcfg: AETrainerConfig,
+                    threshold: float):
+    """`step_fn(state, data, seed, offsets=None) -> metrics`: K =
+    steps_per_call steps, updating `state` in place; `offsets` (K pairs
+    of (grid, near-surface) offset lists) replaces the draws.  Returns the
+    last step's loss terms as device tensors."""
+    K = max(tcfg.steps_per_call, 1)
+
+    def step_fn(state: AETrainState, data: AEData, seed: int,
+                offsets=None) -> Dict[str, torch.Tensor]:
+        for i in range(K):
+            offs = (offsets[i] if offsets is not None
+                    else draw_offsets(tcfg, data, seed, state.step))
+            terms, g = compute_grads(state, acfg, tcfg, data, threshold,
+                                     offs)
+            apply_grads(state, g, tcfg)
+            state.step += 1
+        return terms
+
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# Evaluation
+# ---------------------------------------------------------------------------
+
+def evaluate_tsdf_prediction(pred_sdf: np.ndarray, gt_sdf: np.ndarray,
+                             sdf_threshold: float) -> Dict[str, float]:
+    """Bucketed TSDF L1 / relative error / sign accuracy; rows whose
+    ground truth is exactly 0 are left out of the relative means."""
+    res: Dict[str, float] = {}
+    l1 = np.abs(pred_sdf - gt_sdf)
+    denom = np.abs(gt_sdf)
+    nz = denom > 0
+    rel = np.divide(l1, denom, out=np.zeros_like(l1), where=nz)
+    acc = (pred_sdf * gt_sdf >= 0).astype(np.float32)
+    res["mean_tsdf_l1_error"] = float(l1.mean())
+    res["mean_tsdf_rel_error"] = (
+        float(rel[nz].mean()) if nz.any() else float("nan"))
+    res["mean_tsdf_acc"] = float(acc.mean())
+    n = 4
+    unit = sdf_threshold / n
+    ranges = [i * unit for i in range(n + 1)] + [unit * (n + 1)]
+    for i in range(len(ranges) - 1):
+        m = (np.abs(gt_sdf) >= ranges[i]) & (np.abs(gt_sdf) < ranges[i + 1])
+        suffix = f"{i}-{n}-{i + 1}-n"
+        res[f"mean_tsdf_l1_error_{suffix}"] = (
+            float(l1[m].mean()) if m.any() else float("nan"))
+        mr = m & nz
+        res[f"mean_tsdf_rel_error_{suffix}"] = (
+            float(rel[mr].mean()) if mr.any() else float("nan"))
+        res[f"mean_tsdf_acc_{suffix}"] = (
+            float(acc[m].mean()) if m.any() else float("nan"))
+        res[f"mean_tsdf_count_{suffix}"] = int(m.sum())
+    return res
 
 
 class _Fetch:
@@ -90,6 +498,14 @@ class GeoGrid(NamedTuple):
     seconds: float
 
 
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_clone(v) for v in tree]
+    return tree.detach().clone()
+
+
 def _with_batch(feat: Triplane) -> Triplane:
     """Planes with a leading batch dim of 1 (decode expects [1, H, W, C])."""
     if feat.xy.dim() == 3:
@@ -111,8 +527,13 @@ class AETrainer:
         self.acfg = acfg
         self.tcfg = tcfg or AETrainerConfig()
         self.device = torch.device(device)
+        # the parameters the decode reads, with the kernels' packs
         self.params: Optional[Dict] = None
         self.meta: Dict = {}
+        self.data: Optional[AEData] = None
+        self.grid_perm: Optional[np.ndarray] = None
+        # the last `train`'s optimiser state (flat buffers)
+        self.state: Optional[AETrainState] = None
         # per-sample stage seconds of the mesh path, appended by the decode
         # and the export worker where a caller sets a list here (`generate`
         # does, for its own call): {"dir", "stage", "seconds", ...}
@@ -127,17 +548,158 @@ class AETrainer:
         self._export_pool = None
         self._export_futs: list = []
         self._export_lock = threading.Lock()
+        os.makedirs(log_dir, exist_ok=True)
+
+    def _ckpt_path(self, name: str) -> str:
+        return os.path.join(self.log_dir, f"ckpt_{name}.pth")
 
     def load_ckpt(self, name: str) -> None:
         """Load params and meta from `ckpt_{name}.pth`: the `params/`
         subtree of a combined params/opt_state/step checkpoint, or a
         params-only one."""
-        path = os.path.join(self.log_dir, f"ckpt_{name}.pth")
+        path = self._ckpt_path(name)
         prefix = ("params" if any(p.startswith("params/")
                                   for p in ckpt.peek_paths(path)) else "")
         tree, meta = ckpt.load_tree(path, prefix)
-        self.params = pack_params(ae_params_from_jax(tree, self.device))
+        self.set_params(ae_params_from_jax(tree, self.device))
         self.meta = meta or {}
+
+    def set_params(self, tree: Dict) -> None:
+        """Take a copy of `tree` (tensors on the trainer's device) as the
+        decode's parameters, with the kernels' packs made from it."""
+        self.params = pack_params({k: _clone(v) for k, v in
+                                   strip_packs(tree).items()})
+
+    # -- training -----------------------------------------------------------
+
+    def load_data(self, npz_path: str) -> None:
+        self.data, self.meta, self.grid_perm = load_ae_data(
+            npz_path, self.tcfg, self.device, self.acfg.data_type)
+
+    def load_train_state(self, name: str):
+        """(params tree, optimiser tree, step) of `ckpt_{name}.pth` as numpy
+        trees, for resume; None where the file is absent or holds no
+        optimiser state.  Sets the meta from the file."""
+        path = self._ckpt_path(name)
+        if not os.path.exists(path):
+            return None
+        if not any(p.startswith("opt_state/") for p in ckpt.peek_paths(path)):
+            return None
+        tree, meta = ckpt.load_tree(path)
+        if meta:
+            self.meta = meta
+        return tree["params"], tree["opt_state"], int(tree["step"])
+
+    def save_ckpt(self, name: str) -> None:
+        """`ckpt_{name}.pth`: the train state's params, optimiser state and
+        step, with the meta."""
+        st = self.state
+        ckpt.save_tree(self._ckpt_path(name), {
+            "params": st.tree(st.flat), "opt_state": opt_tree(st),
+            "step": np.asarray(st.step, np.int32)}, meta=self.meta)
+
+    def train(self, seed: int = 0, n_iters: Optional[int] = None,
+              log_every: int = 100, eval_every: Optional[int] = None,
+              resume: bool = False,
+              save_every: Optional[int] = None) -> Dict[str, float]:
+        """Fit the AE; returns `evaluate`'s statistics, written to
+        `eval_stat.json` beside `ckpt_final.pth`.  The parameters start
+        from `self.params` where set, else from `init_autoencoder` on a
+        generator seeded with `seed`; step k's batch from (seed, k).
+        `resume` continues from `ckpt_latest.pth` (params, optimiser state,
+        step), written every `save_every` steps (default the featmap
+        logging cadence, n_iters / 5)."""
+        assert self.data is not None, "train() needs load_data()"
+        n_iters = n_iters or self.tcfg.enc_n_iters
+        resumed = self.load_train_state("latest") if resume else None
+        if resumed is not None:
+            params = ae_params_from_jax(resumed[0], self.device)
+        elif self.params is not None:
+            params = self.params
+        else:
+            params = ae.init_autoencoder(torch.Generator(
+                device=self.device).manual_seed(seed), self.acfg)
+        st = self.state = init_train_state(params, self.tcfg)
+        if resumed is not None:
+            load_opt_tree(st, resumed[1])
+            st.step = resumed[2]
+            logger.log(f"AE resume from iter {st.step}")
+        step_fn = make_train_step(self.acfg, self.tcfg,
+                                  self.meta["threshold"])
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(os.path.join(self.log_dir, "tblog"))
+        except ImportError:
+            tb = None
+        from ..core.profiling import step_annotation
+        eval_every = eval_every or max(n_iters // 5, 1)
+        save_every = save_every or eval_every
+        K = max(self.tcfg.steps_per_call, 1)
+        for i in range(st.step, n_iters, K):
+            with step_annotation("ae_train", i):
+                metrics = step_fn(st, self.data, seed)
+            if i % log_every == 0:
+                vals = {k: float(v) for k, v in metrics.items()}
+                for k, v in vals.items():
+                    logger.logkv(f"ae/{k}", v)
+                logger.logkv("ae/iter", i)
+                logger.dumpkvs()
+                if tb is not None:
+                    tb.add_scalars("loss", vals, global_step=i)
+            if tb is not None and (i == 0 or (i + K) % eval_every < K):
+                self.set_params(st.tree(st.flat))
+                self._featmap_figures(tb, i)
+            if (i + K) % save_every < K and i + K < n_iters:
+                self.save_ckpt("latest")
+        self.set_params(st.tree(st.flat))
+        eval_stat = self.evaluate()
+        with open(os.path.join(self.log_dir, "eval_stat.json"), "w") as f:
+            json.dump(eval_stat, f, indent=2)
+        st.step = n_iters
+        self.save_ckpt("final")
+        return eval_stat
+
+    def _featmap_figures(self, tb, step: int) -> None:
+        """Channel 0 of each plane as a TensorBoard heatmap."""
+        from ..core.rng import draw_scalar_field2D
+        for pi, plane in enumerate(self.encode()):
+            tb.add_figure(f"feat_map_{pi}", draw_scalar_field2D(
+                plane[0, :, :, 0].cpu().numpy()), global_step=step)
+
+    @torch.no_grad()
+    def encode(self) -> Triplane:
+        """The training volume's triplane (`[1, ., ., C]` planes)."""
+        assert self.data is not None and self.params is not None
+        return ae.encode(self.params, self.acfg, self.data.input_grid)
+
+    @torch.no_grad()
+    def evaluate(self) -> Dict[str, float]:
+        """Sign accuracy and TSDF errors of the decoded training grid (the
+        grid is the AABB's voxel centres, so it decodes densely,
+        `decode_grid_dense`, reordered by `grid_perm` onto the shuffled
+        ground truth) and, with texture, the L1 error of the on-surface
+        colours."""
+        assert self.grid_perm is not None, "evaluate() needs load_data()"
+        feat = self.encode()
+        thr = self.meta["threshold"]
+        with self._device_lock:
+            gp, tp = self._planes(feat)
+            pred = ae.decode_grid_dense(
+                self.params, self.acfg, gp, tp,
+                tuple(self.meta["grid_shape"]),
+                geo_only=True).cpu().numpy().reshape(-1, 1)
+        pred = pred[self.grid_perm]
+        gt = self.data.sdf_grid.cpu().numpy()
+        if self.tcfg.sdf_renorm:
+            pred, gt = pred * thr, gt * thr
+        stat = evaluate_tsdf_prediction(pred, gt, thr)
+        if self.acfg.use_tex and self.data.pts_on_surf is not None:
+            tex_pred = self.decode_batch(
+                feat, self.data.pts_on_surf.cpu().numpy(),
+                batch_size=2 ** 20)[:, 1:]
+            stat["surf_tex_l1_error"] = float(np.abs(
+                tex_pred - self.data.tex_on_surf.cpu().numpy()).mean())
+        return stat
 
     # -- export worker ------------------------------------------------------
 

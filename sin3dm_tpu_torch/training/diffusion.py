@@ -7,14 +7,13 @@ K steps per call, a Python loop (JAX scans them in one dispatch);
 metrics reach the host only at the logging cadence.
 
 Semantics follow JAX's optax chain, written out over flat fp32 buffers
-(the parameters, each EMA, mu and nu are one tensor each; the parameter
-leaves the model reads are views of the parameter buffer):
+(`training.adamw`; the parameters, each EMA, mu and nu are one tensor
+each; the parameter leaves the model reads are views of the parameter
+buffer):
 
-- AdamW as `optax.adamw`: mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g^2,
-  the count advanced, mu and nu bias-corrected by 1 - b^count, update
-  mu_hat / (sqrt(nu_hat) + eps) (eps outside the root), plus weight_decay
-  * params, times -lr(k), where k is the schedule's count before it
-  advances: lr(k) = lr (1 - min(k / anneal, 1)) in float32.
+- AdamW as `optax.adamw` (`adamw.update`) at lr(k), where k is the
+  schedule's count before it advances: lr(k) = lr (1 - min(k / anneal,
+  1)) in float32.
 - NaN guard: where the global grad norm is not finite the update still
   runs on zeroed grads (mu and nu decay, both counts advance) and the old
   parameters are kept; the EMA then moves toward the kept parameters.
@@ -44,9 +43,8 @@ from ..core.rng import step_generator
 from ..core.triplane import Triplane, randn_like
 from ..diffusion import resample
 from ..diffusion.gaussian import DiffusionConfig, training_losses
+from . import adamw
 
-B1, B2, EPS = 0.9, 0.999, 1e-8
-_INT32_MAX = 2 ** 31 - 1
 
 
 @dataclass
@@ -91,72 +89,21 @@ class TrainState:
 
     def tree(self, flat: torch.Tensor) -> Dict:
         """`flat` (a buffer of this state's layout) as a detached tree."""
-        return _views(flat.detach(), self.params)
-
-
-def _views(flat: torch.Tensor, like: Dict) -> Dict:
-    leaves, off = [], 0
-    for _, leaf in ckpt.leaves_with_paths(like):
-        n = leaf.numel()
-        leaves.append(flat[off:off + n].view(leaf.shape))
-        off += n
-    return ckpt.unflatten_like(like, leaves)
-
-
-def _flat(tree: Dict, device=None) -> torch.Tensor:
-    return torch.cat([torch.as_tensor(v, dtype=torch.float32,
-                                      device=device).reshape(-1)
-                      for _, v in ckpt.leaves_with_paths(tree)])
-
-
-def _layout(tree) -> List[Tuple[str, Tuple[int, ...]]]:
-    """(path, shape) of every leaf, in flatten order."""
-    return [(p, tuple(np.shape(v))) for p, v in ckpt.leaves_with_paths(tree)]
-
-
-def _param_views(flat: torch.Tensor, like: Dict) -> Dict:
-    tree = _views(flat, like)
-    for _, v in ckpt.leaves_with_paths(tree):
-        v.requires_grad_(True)
-    return tree
+        return adamw.views(flat.detach(), self.params)
 
 
 def init_train_state(params: Dict, cfg: DiffusionTrainerConfig,
                      num_timesteps: int) -> TrainState:
     """A fresh state whose buffers copy `params` (a tree of tensors)."""
     device = next(iter(ckpt.leaves_with_paths(params)))[1].device
-    flat = _flat(params, device).detach().clone()
+    flat = adamw.flatten(params, device).detach().clone()
     return TrainState(
-        params=_param_views(flat, params), flat=flat,
+        params=adamw.param_views(flat, params), flat=flat,
         ema=[flat.clone() for _ in cfg.ema_rates],
         mu=torch.zeros_like(flat), nu=torch.zeros_like(flat), count=0,
         sched_count=0 if cfg.lr_anneal_steps else None,
         sampler_state=resample.init_sampler_state(num_timesteps, device),
         step=0)
-
-
-def opt_tree(state: TrainState) -> Dict:
-    """The optimiser state in JAX's leaf layout (numpy leaves)."""
-    def np_tree(buf):
-        return ckpt.unflatten_like(state.params, [
-            v.cpu().numpy() for _, v in ckpt.leaves_with_paths(
-                state.tree(buf))])
-    return ckpt.adamw_tree(state.count, np_tree(state.mu), np_tree(state.nu),
-                           state.sched_count)
-
-
-def load_opt_tree(state: TrainState, tree) -> None:
-    """Set the state's AdamW moments and counts from JAX's leaf layout;
-    ValueError where the tree does not fit the parameters."""
-    count, mu, nu, sched = ckpt.adamw_from_tree(tree)
-    for name, t in (("mu", mu), ("nu", nu)):
-        if _layout(t) != _layout(state.params):
-            raise ValueError(f"optimiser state: {name} does not fit the "
-                             "parameters")
-    with torch.no_grad():
-        state.mu.copy_(_flat(mu, state.flat.device))
-        state.nu.copy_(_flat(nu, state.flat.device))
-    state.count, state.sched_count = count, sched
 
 
 def draw_step_inputs(tcfg: DiffusionTrainerConfig, state: TrainState,
@@ -182,20 +129,8 @@ def apply_grads(state: TrainState, g: torch.Tensor,
     gnorm = torch.sqrt((g * g).sum())
     ok = torch.isfinite(gnorm)
     g = torch.where(ok, g, torch.zeros((), device=g.device))
-    state.mu.mul_(B1).add_(g, alpha=1 - B1)
-    state.nu.mul_(B2).addcmul_(g, g, value=1 - B2)
-    state.count = min(state.count + 1, _INT32_MAX)
-    k = np.float32(state.count)
-    bc1 = float(np.float32(1.0) - np.float32(B1) ** k)
-    bc2 = float(np.float32(1.0) - np.float32(B2) ** k)
-    upd = (state.mu / bc1) / (torch.sqrt(state.nu / bc2) + EPS)
-    if tcfg.weight_decay:
-        upd = upd + tcfg.weight_decay * state.flat
-    lr = learning_rate(tcfg, state.sched_count)
-    if state.sched_count is not None:
-        state.sched_count = min(state.sched_count + 1, _INT32_MAX)
-    new = state.flat + upd * float(-lr)
-    state.flat.copy_(torch.where(ok, new, state.flat))
+    adamw.update(state, g, learning_rate(tcfg, state.sched_count),
+                 tcfg.weight_decay, ok=ok)
     for rate, e in zip(tcfg.ema_rates, state.ema):
         e.mul_(rate).add_(state.flat, alpha=1.0 - rate)
     return gnorm, ok
@@ -338,16 +273,16 @@ class DiffusionTrainLoop:
         st = self.state
         ema, _ = ckpt.load_tree(os.path.join(
             self.log_dir, ema_checkpoint_name(rate, step)))
-        if _layout(ema) != _layout(st.params):
+        if adamw.layout(ema) != adamw.layout(st.params):
             raise ValueError(f"checkpoint structure mismatch at step {step}")
         with torch.no_grad():
-            st.flat.copy_(_flat(ema, st.flat.device))
+            st.flat.copy_(adamw.flatten(ema, st.flat.device))
             for e in st.ema:
                 e.copy_(st.flat)
         opt_path = os.path.join(self.log_dir, opt_checkpoint_name(step))
         if os.path.exists(opt_path):
             try:
-                load_opt_tree(st, ckpt.load_tree(opt_path)[0])
+                adamw.load_opt_tree(st, ckpt.load_tree(opt_path)[0])
             except ValueError:
                 logger.log("optimizer state incompatible; reinitialized")
         st.step = step
@@ -396,4 +331,4 @@ class DiffusionTrainLoop:
             ckpt.save_tree(path, self.state.tree(ema))
             logger.log(f"saved {path}")
         ckpt.save_tree(os.path.join(self.log_dir, opt_checkpoint_name(step)),
-                       opt_tree(self.state))
+                       adamw.opt_tree(self.state))

@@ -186,8 +186,10 @@ def test_k2_edge_shapes(card, cin, cout, hidden, n_hidden, n, dt):
               for k, v in params.items()}
     x = _randn(g, n, cin, scale=0.5).to(card)
     before = tfm.skip_mlp.launches
+    by_shape = tfm.skip_mlp.shape_launches.get((n, cin, cout), 0)
     got = tfm.skip_mlp(params, x, mxu_dtype=dt)
     assert tfm.skip_mlp.launches == before + 1
+    assert tfm.skip_mlp.shape_launches[(n, cin, cout)] == by_shape + 1
     ref = tfm.skip_mlp_reference(params, x, mxu_dtype=dt)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (n, cout)
@@ -611,3 +613,114 @@ def test_nan_guard_step_on_the_card(card):
     torch.testing.assert_close(state.mu, mu * 0.9, rtol=1e-6, atol=0)
     torch.testing.assert_close(state.nu, nu * 0.999, rtol=1e-6, atol=0)
     assert (state.count, state.sched_count, state.step) == (2, 2, 2)
+
+
+# The AE's training form: K2 closed to autograd, a train step on the card
+# ---------------------------------------------------------------------------
+
+def test_k2_refuses_grad_on_the_card(card):
+    head = _skip_head(torch.Generator().manual_seed(1), 64, 3, 256, 4)
+    head = {k: [{n: t.to(card) for n, t in lp.items()} for lp in v]
+            for k, v in head.items()}
+    x = torch.randn(256, 64, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfm.skip_mlp(head, x, torch.bfloat16)
+    head["first"][0]["w"].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfm.skip_mlp(head, x.detach(), torch.bfloat16)
+    with torch.no_grad():
+        out = tfm.skip_mlp(head, x, torch.bfloat16)
+    assert out.shape == (256, 3) and torch.isfinite(out).all()
+
+
+def _ae_sphere_npz(path, n=32):
+    """A textured sphere in the mesh sampler's npz schema (an n^3 grid in
+    [-1, 1]^3, 2,000 on- and near-surface points)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    xs = (np.arange(n) + 0.5) / n * 2 - 1
+    grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1)
+    on = rng.standard_normal((2000, 3))
+    on = on / np.linalg.norm(on, axis=-1, keepdims=True) * 0.6
+    near = on + rng.normal(0, 0.005, on.shape)
+
+    def tex(p):
+        return np.stack([0.5 + 0.5 * p[..., 0], 0.5 + 0.5 * p[..., 1],
+                         0.5 + 0.5 * p[..., 2]], -1).astype(np.float32)
+
+    def sdf(p):
+        return (np.linalg.norm(p, axis=-1) - 0.6).astype(np.float32)
+
+    f32 = np.float32
+    np.savez(path, pts_grid=grid.astype(f32), sdf_grid=sdf(grid),
+             tex_grid=tex(grid), pts_on_surf=on.astype(f32),
+             tex_on_surf=tex(on), pts_near_surf=near.astype(f32),
+             sdf_near_surf=sdf(near), tex_near_surf=tex(near),
+             aabb=np.array([-1, -1, -1, 1, 1, 1], f32),
+             threshold=f32(2.0 / n * 3))
+
+
+def test_ae_train_step_card_vs_cpu(card, tmp_path):
+    """One AE train step (hidden 64, 2 hidden layers, fdim_up 32, batch
+    4096) on the card against the CPU from the same params, warm AdamW
+    state and window offsets: loss terms 1e-5 relative, each leaf's grad
+    1e-4 of its largest |g| (the biases an InstanceNorm cancels: both
+    below 1e-5 of the whole grad's), params 1e-5 absolute, mu 1e-4 and nu
+    2e-4 of the leaf's largest; no K2 launch."""
+    from sin3dm_tpu_torch.core import checkpoint as ck
+    from sin3dm_tpu_torch.models import autoencoder as tae
+    from sin3dm_tpu_torch.training import ae as ta
+    npz = str(tmp_path / "sphere.npz")
+    _ae_sphere_npz(npz)
+    acfg = tae.AEConfig(fdim_geo=4, fdim_tex=8, fdim_up=32, hidden_dim=64,
+                        n_hidden_layers=2)
+    tcfg = ta.AETrainerConfig(enc_batch_size=4096, enc_n_iters=100,
+                              fm_reso=16)
+    g = torch.Generator().manual_seed(3)
+    params = tae.init_autoencoder(g, acfg)
+    params = ck.unflatten_like(params, [
+        v + 0.02 * torch.randn(v.shape, generator=g)
+        for _, v in ck.leaves_with_paths(params)])
+    n = sum(v.numel() for _, v in ck.leaves_with_paths(params))
+    mu = 1e-3 * torch.randn(n, generator=g)
+    nu = (1e-3 * (1 + torch.randn(n, generator=g).abs())) ** 2
+    offsets = ([0, 500, 1000, 1500, 2000, 2500, 3000, 3500],
+               [0, 100, 200, 300, 400, 500, 600, 700])
+    res = {}
+    launches = tfm.skip_mlp.launches
+    for dev in ("cpu", card):
+        data, meta, _ = ta.load_ae_data(npz, tcfg, dev)
+        st = ta.init_train_state(ck.unflatten_like(params, [
+            v.to(dev) for _, v in ck.leaves_with_paths(params)]), tcfg)
+        st.mu.copy_(mu)
+        st.nu.copy_(nu)
+        st.count = st.sched_count = 100
+        terms, grad = ta.compute_grads(st, acfg, tcfg, data,
+                                       meta["threshold"], offsets)
+        ta.apply_grads(st, grad, tcfg)
+        res[str(dev)] = ({k: v.cpu() for k, v in terms.items()},
+                         grad.cpu(), st.flat.cpu(), st.mu.cpu(),
+                         st.nu.cpu(), st)
+    assert tfm.skip_mlp.launches == launches
+    (tc, gc, fc, mc, nc, ref), (tg, gg, fg, mg, ng, _) = (
+        res["cpu"], res[str(card)])
+    for k, v in tc.items():
+        assert (tg[k] - v).abs() <= 1e-5 * v.abs(), k
+
+    def leaves(buf):
+        return dict(ck.leaves_with_paths(ref.tree(buf)))
+
+    top = gc.abs().max()
+    lg, lc = leaves(gg), leaves(gc)
+    for p, want in lc.items():
+        parts = p.split("/")
+        if parts[-1] == "b" and (parts[0].endswith("_encoder")
+                                 or "in_conv" in parts):
+            assert max(want.abs().max(), lg[p].abs().max()) <= 1e-5 * top
+        else:
+            assert (lg[p] - want).abs().max() <= 1e-4 * want.abs().max(), p
+    assert (fg - fc).abs().max() <= 1e-5
+    for got, want, tol in ((mg, mc, 1e-4), (ng, nc, 2e-4)):
+        lg, lc = leaves(got), leaves(want)
+        for p, w in lc.items():
+            assert (lg[p] - w).abs().max() <= tol * w.abs().max(), p

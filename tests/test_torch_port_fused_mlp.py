@@ -144,3 +144,22 @@ def test_pack_params_packs_each_skip_head_once():
     x = torch.randn(50, 64)
     assert torch.equal(tfm.skip_mlp(packed["geo_decoder"], x, torch.bfloat16),
                        tfm.skip_mlp(geo, x, torch.bfloat16))
+
+
+@pytest.mark.parametrize("what", ["x", "weights"])
+def test_skip_mlp_refuses_grad(what):
+    """K2 has no backward: where autograd would record the call (x or a
+    weight that requires grad, grad mode on) `skip_mlp` raises on the CPU
+    as it does on the card, though the plain version it computes here is
+    differentiable; under `torch.no_grad` it runs."""
+    _, head = _head(7, 32, 3, 64, 2)
+    x = torch.randn(40, 32)
+    if what == "x":
+        x.requires_grad_()
+    else:
+        head["second"][-1]["b"].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfm.skip_mlp(head, x)
+    with torch.no_grad():
+        out = tfm.skip_mlp(head, x)
+    assert torch.equal(out, tfm.skip_mlp_reference(head, x.detach()))

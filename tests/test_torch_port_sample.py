@@ -133,7 +133,8 @@ CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.cli.train", "sin3dm_tpu_torch.core.logger",
            "sin3dm_tpu_torch.core.profiling", "sin3dm_tpu_torch.core.rng",
            "sin3dm_tpu_torch.diffusion.resample",
-           "sin3dm_tpu_torch.training.diffusion"}
+           "sin3dm_tpu_torch.training.diffusion",
+           "sin3dm_tpu_torch.training.adamw"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

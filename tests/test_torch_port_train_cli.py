@@ -9,8 +9,8 @@ towerruins encoding (`--enc_log`), on the CPU with a narrow UNet
   parameters and every EMA from the EMA file, the moments and counts from
   the opt file.
 - `cli.sample --vox` runs from the EMA the port wrote.
-- The guards: a multi-device `--n_devices`, the AE stage, and `--device
-  cuda` (the default) without a card raise.
+- The guards: a multi-device `--n_devices` (in either stage) and
+  `--device cuda` (the default) without a card raise.
 """
 
 import json
@@ -51,7 +51,7 @@ def _argv(tag, *extra):
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     tag = tmp_path_factory.mktemp("train") / "tag"
-    return tag, train_cli.main(_argv(tag))
+    return tag, train_cli.main(_argv(tag)).diffusion
 
 
 def _leaves(tree):
@@ -160,7 +160,7 @@ def test_sample_cli_runs_from_the_port_ema(trained, tmp_path):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (["--n_devices", "2"], NotImplementedError, "multi-device"),
-    (["--only_enc"], NotImplementedError, "AE training"),
+    (["--only_enc", "--n_devices", "2"], NotImplementedError, "AE training"),
 ])
 def test_options_of_later_slices_raise(tmp_path, extra, exc, match):
     with pytest.raises(exc, match=match):

@@ -43,6 +43,7 @@ from sin3dm_tpu_torch.core.triplane import Triplane as TT
 from sin3dm_tpu_torch.diffusion.gaussian import DiffusionConfig as TDC
 from sin3dm_tpu_torch.diffusion.gaussian import tables_to_device
 from sin3dm_tpu_torch.models import unet as TU
+from sin3dm_tpu_torch.training import adamw
 from sin3dm_tpu_torch.training import diffusion as TD
 
 torch.set_num_threads(2)
@@ -135,7 +136,7 @@ def _port(params, tcfg_kw, tables, tucfg, opt_path=None):
     tcfg = TD.DiffusionTrainerConfig(**tcfg_kw)
     state = TD.init_train_state(unet_params_from_jax(params), tcfg, T)
     if opt_path is not None:
-        TD.load_opt_tree(state, tckpt.load_tree(str(opt_path))[0])
+        adamw.load_opt_tree(state, tckpt.load_tree(str(opt_path))[0])
         state.step = WARM
     step = TD.make_train_step(
         lambda p, x, t: TU.unet_train_apply(p, tucfg, x, t),
