@@ -81,6 +81,25 @@ of this repository.  Phases, each printing its results:
    version, with a faulty head as the control; 8f the AE step's
    ms, points/s, peak memory, profile and share of its TF32 bound
    (K2's evaluate shape, the geo head over [2^20, 64], joins phase 3);
+9. data preparation at full width: numpy writes a textured OBJ (a
+   Kd-only box and a UV sphere with an 8-bit RGB map, 101,772 faces)
+   whose grid is the tag's 184x256x184; `mesh_sampler.main` with the
+   README's flags (--n_surf 5000000 --watertight, reso 256) writes the
+   npz: its schema as the AE reads it, the grid and near-surface SDF
+   within the sphere's chord error of the analytic SDF (signs equal
+   beyond it), the box's colours exactly Kd and the sphere's within one
+   texel's colour step of the map at their analytic UV, 20 AE steps on
+   the card finite and falling; then reso 64 without --watertight
+   through the winding-number remesh (signs equal beyond 2 of its
+   cells); seconds per stage and the host's cores;
+10. evaluation on the card: 10a LP (avg, percent) and Div of the 15
+   committed grids 001-015 against grid 000, card and host per-patch
+   arrays equal bit for bit, both within 1e-6 of JAX's values (P10_JAX);
+   10b `eval_full.main --device cuda`, then `--device cpu`, over 4e's 2
+   samples (their voxel.npz and 8 renders at 512 by the port's renderer)
+   and the 15 grids against grid 000 and renders of phase 9's OBJ, with
+   seeded weights in the 4 published layouts: every metric within
+   P10_TOL, seconds per metric on both, render seconds per view;
 7. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -89,6 +108,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -2196,6 +2216,506 @@ def phase8() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: data preparation at full width
+# ---------------------------------------------------------------------------
+
+P9_RESO = 256
+P9_NSURF = 5_000_000      # the README's --n_surf
+P9_GRID = (184, 256, 184)  # the tag's training grid
+P9_AE_STEPS = 20
+P9_NSURF_REMESH = 200_000  # the reso-64 run through the watertight remesh
+# the shape, in OBJ units: a Kd-only box and, above it and apart from it,
+# a UV sphere textured by an 8-bit RGB map; the union's extents are
+# 0.9 x 1.3 x 0.9, so normalize_aabb rounds the grid to P9_GRID
+P9_BOX_C, P9_BOX_H = (0.0, -0.3, 0.0), (0.45, 0.35, 0.45)
+P9_SPH_C, P9_SPH_R = (0.0, 0.4, 0.0), 0.25
+P9_KD = (0.25, 0.5, 0.75)
+P9_SPHERE_ROWS, P9_SPHERE_COLS = 160, 320   # 101,760 sphere faces
+P9_MAP = (64, 128)                           # the map's H x W
+
+
+def p9_map():
+    """The sphere's map: smooth in (u, v) and periodic in u, 8-bit RGB."""
+    import numpy as np
+    H, W = P9_MAP
+    u = (np.arange(W) + 0.5) / W
+    v = 1.0 - (np.arange(H) + 0.5) / H
+    U, V = np.meshgrid(u, v)
+    rgb = np.stack([0.5 + 0.5 * np.cos(2 * np.pi * U),
+                    0.5 + 0.5 * np.cos(np.pi * V),
+                    0.5 + 0.25 * np.sin(4 * np.pi * U)], axis=-1)
+    return np.rint(rgb * 255).astype(np.uint8)
+
+
+def p9_write_obj(dirpath: str) -> dict:
+    """Write the box-and-sphere OBJ, its MTL and map (the port's
+    encode_png) from numpy; coordinates in %.17g, so the OBJ holds these
+    float64 values exactly.  Returns the shape's description."""
+    import numpy as np
+    from sin3dm_tpu_torch.geometry.meshio import encode_png
+    n_th, n_ph = P9_SPHERE_ROWS, P9_SPHERE_COLS
+    th = np.pi * np.arange(n_th + 1) / n_th
+    ph = 2 * np.pi * np.arange(n_ph + 1) / n_ph
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    sv = (np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P),
+                    np.cos(T)], -1).reshape(-1, 3) * P9_SPH_R
+          + np.asarray(P9_SPH_C))
+    suv = np.stack([P / (2 * np.pi), 1 - T / np.pi], -1).reshape(-1, 2)
+    tris = []
+    for i in range(n_th):
+        a = i * (n_ph + 1) + np.arange(n_ph)
+        b, c = a + 1, a + n_ph + 1
+        d = c + 1
+        if i > 0:                  # the top row's first triangle is a point
+            tris.append(np.stack([a, c, b], -1))
+        if i < n_th - 1:           # the bottom row's second is a point
+            tris.append(np.stack([b, c, d], -1))
+    sf = np.concatenate(tris)
+    corners = np.array([(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+                        (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)], float)
+    bv = np.asarray(P9_BOX_C) + (2 * corners - 1) * np.asarray(P9_BOX_H)
+    bf = np.array([(0, 2, 1), (0, 3, 2), (4, 5, 6), (4, 6, 7), (0, 1, 5),
+                   (0, 5, 4), (2, 3, 7), (2, 7, 6), (0, 4, 7), (0, 7, 3),
+                   (1, 2, 6), (1, 6, 5)])
+    os.makedirs(dirpath, exist_ok=True)
+    tex = p9_map()
+    with open(os.path.join(dirpath, "map.png"), "wb") as fh:
+        fh.write(encode_png(tex))
+    with open(os.path.join(dirpath, "model.mtl"), "w") as fh:
+        fh.write("newmtl sphere\nKd 1 1 1\nmap_Kd map.png\n"
+                 f"newmtl box\nKd {P9_KD[0]} {P9_KD[1]} {P9_KD[2]}\n")
+    obj = os.path.join(dirpath, "model.obj")
+    nb = len(bv)
+    with open(obj, "w") as fh:
+        fh.write("mtllib model.mtl\n")
+        fh.write("".join("v %.17g %.17g %.17g\n" % tuple(p)
+                         for p in np.concatenate([bv, sv])))
+        fh.write("".join("vt %.17g %.17g\n" % tuple(t) for t in suv))
+        fh.write("usemtl box\n")
+        fh.write("".join("f %d %d %d\n" % tuple(t) for t in bf + 1))
+        fh.write("usemtl sphere\n")
+        fh.write("".join("f %d/%d %d/%d %d/%d\n" % (
+            t[0] + nb, t[0], t[1] + nb, t[1], t[2] + nb, t[2])
+            for t in sf + 1))
+    # the sphere's chord error: the deepest point of each flat face, at
+    # most r - sqrt(r^2 - R^2) for its circumradius R
+    p0, p1, p2 = sv[sf[:, 0]], sv[sf[:, 1]], sv[sf[:, 2]]
+    la, lb, lc = (np.linalg.norm(p1 - p2, axis=1),
+                  np.linalg.norm(p0 - p2, axis=1),
+                  np.linalg.norm(p0 - p1, axis=1))
+    area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1)
+    circ = la * lb * lc / (4 * area)
+    chord = float((P9_SPH_R - np.sqrt(P9_SPH_R ** 2 - circ ** 2)).max())
+    verts = np.concatenate([bv, sv])
+    lo, hi = verts.min(0), verts.max(0)
+    return {"obj": obj, "faces": len(sf) + len(bf), "chord": chord,
+            "map": tex, "center": (lo + hi) / 2,
+            "scale": 2.0 / ((hi - lo).max() * 1.03)}
+
+
+def p9_analytic(shape: dict, p):
+    """(the union's exact SDF, on-the-box mask, sphere direction) at
+    normalized points p, from the OBJ-unit shape and the sampler's
+    normalization (centre, scale)."""
+    import numpy as np
+    s = shape["scale"]
+    c = (np.asarray(P9_BOX_C) - shape["center"]) * s
+    h = np.asarray(P9_BOX_H) * s
+    q = np.abs(p - c) - h
+    box = (np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+           + np.minimum(q.max(axis=-1), 0.0))
+    sc = (np.asarray(P9_SPH_C) - shape["center"]) * s
+    d = p - sc
+    rho = np.linalg.norm(d, axis=-1)
+    sph = rho - P9_SPH_R * s
+    return np.minimum(box, sph), box < sph, d / np.maximum(rho, 1e-12)[
+        ..., None]
+
+
+def p9_colour_check(shape: dict, pts, tex, label: str) -> dict:
+    """Points on the box exactly Kd; points on the sphere (away from its
+    poles) within one texel's colour step of the map at their analytic
+    UV (the map's largest difference between a texel and its 8
+    neighbours)."""
+    import numpy as np
+    _, on_box, d = p9_analytic(shape, pts)
+    kd_bad = int((tex[on_box] != np.asarray(P9_KD)).any(axis=1).sum())
+    m = shape["map"].astype(np.float64) / 255.0
+    H, W = m.shape[:2]
+    step = 0.0
+    for dy, dx in ((0, 1), (1, 0), (1, 1), (1, -1)):
+        # texel (y + dy, x) against (y, x + dx); u wraps, v does not
+        step = max(step, float(np.abs(
+            m[dy:] - np.roll(m, -dx, axis=1)[:H - dy]).max()))
+    theta = np.arccos(np.clip(d[:, 2], -1, 1))
+    u = np.mod(np.arctan2(d[:, 1], d[:, 0]) / (2 * np.pi), 1.0)
+    v = 1.0 - theta / np.pi
+    pole = 3 * np.pi / P9_SPHERE_ROWS
+    sel = ~on_box & (theta > pole) & (theta < np.pi - pole)
+    ix = np.floor(u[sel] * W).astype(int) % W
+    iy = np.clip(np.floor((1.0 - v[sel]) * H).astype(int), 0, H - 1)
+    err = np.abs(tex[sel] - m[iy, ix]).max(axis=1)
+    out = {"points": int(len(pts)), "box": int(on_box.sum()),
+           "kd_mismatch": kd_bad, "sphere_checked": int(sel.sum()),
+           "worst_colour_err": float(err.max()) if sel.any() else 0.0,
+           "texel_step": step}
+    print(f"mesh sampler {label} colours: {out}")
+    # the map is float32 in the sampler: allow its rounding
+    if kd_bad or not sel.any() or out["worst_colour_err"] > step + 1e-6:
+        fail(f"mesh sampler: {label} colours off the material ({out})")
+    return out
+
+
+def p9_sdf_check(shape: dict, pts, sdf, threshold: float, label: str,
+                 tol: float) -> dict:
+    """|sdf - analytic| <= tol where |analytic| < threshold (sdf is clipped
+    to it), and the same sign wherever |analytic| > tol."""
+    import numpy as np
+    ref, _, _ = p9_analytic(shape, pts)
+    near = np.abs(ref) < threshold
+    err = float(np.abs(sdf[near] - ref[near]).max())
+    far = np.abs(ref) > tol
+    flips = int((np.sign(sdf[far]) != np.sign(ref[far])).sum())
+    out = {"points": int(len(pts)), "near": int(near.sum()),
+           "worst_err": err, "tol": tol, "sign_flips": flips,
+           "clipped_to": float(np.abs(sdf).max())}
+    print(f"mesh sampler {label} sdf: {out}")
+    if err > tol or flips or out["clipped_to"] > threshold:
+        fail(f"mesh sampler: {label} sdf off the analytic shape ({out})")
+    return out
+
+
+def p9_ae_steps(npz: str) -> dict:
+    """P9_AE_STEPS steps of `make_train_step` on the card at the encoding
+    args.json's width from a fresh init (TF32 on, as the CLI trains):
+    every loss finite, the last 5 below the first 5 on average."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.models.autoencoder import init_autoencoder
+    from sin3dm_tpu_torch.training import ae as TA
+    dev = torch.device("cuda")
+    acfg, tcfg, data, meta = ae_setup(npz, dev)
+    st = TA.init_train_state(init_autoencoder(
+        torch.Generator(dev).manual_seed(0), acfg), tcfg)
+    step = TA.make_train_step(acfg, tcfg, meta["threshold"])
+    losses = []
+    with tf32(True):
+        t0 = time.perf_counter()
+        while st.step < P9_AE_STEPS:
+            losses.append(float(step(st, data, 0)["loss"]))
+        secs = time.perf_counter() - t0
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"mesh sampler npz: {st.step} AE steps on the card in "
+          f"{secs:.2f} s, grid {meta['grid_shape']}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} (first 5 {first:.6f}, last "
+          f"5 {last:.6f})")
+    if not (np.isfinite(losses).all() and last < first):
+        fail(f"mesh sampler npz: AE losses not finite and falling {losses}")
+    del data, st
+    torch.cuda.empty_cache()
+    return {"steps": P9_AE_STEPS, "losses": losses, "seconds": secs}
+
+
+def phase9(tmp: str) -> dict:
+    """9. The box-and-sphere OBJ through `mesh_sampler.main` with the
+    README's flags (--n_surf 5000000 --watertight, reso 256): the schema
+    the AE reads, the grid and near-surface SDF against the analytic
+    shape, the colours against the materials, 20 AE steps on the npz;
+    then reso 64 without --watertight, through the remesh."""
+    import numpy as np
+    from sin3dm_tpu_torch.dataio import mesh_sampler
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions, \
+        normalize_aabb
+    from sin3dm_tpu_torch.geometry import native
+    from sin3dm_tpu_torch.geometry.meshproc import load_obj_scene
+    t0 = time.perf_counter()
+    shape = p9_write_obj(os.path.join(tmp, "mesh"))
+    scene = load_obj_scene(shape["obj"])
+    aabb, _, _ = normalize_aabb(scene["verts"], P9_RESO)
+    grid = tuple(int(x) for x in grid_resolutions(aabb, P9_RESO))
+    cores = {"os.cpu_count": os.cpu_count(),
+             "affinity": len(os.sched_getaffinity(0)),
+             "library_flags": " ".join(native.build_flags())}
+    print(f"mesh sampler: {shape['obj']}: {shape['faces']} faces "
+          f"(written in {time.perf_counter() - t0:.2f} s), sphere chord "
+          f"error {shape['chord']:.3e} (OBJ units), grid {grid} (want "
+          f"{P9_GRID}); host cores {cores}")
+    if grid != P9_GRID:
+        fail(f"mesh sampler: the shape's grid is {grid}, not {P9_GRID}")
+    npz = os.path.join(tmp, "shape.npz")
+    t0 = time.perf_counter()
+    secs = mesh_sampler.main(["-s", shape["obj"], "-d", npz, "--reso",
+                              str(P9_RESO), "--n_surf", str(P9_NSURF),
+                              "--watertight"])
+    total = time.perf_counter() - t0
+    print("mesh sampler seconds per stage (reso 256, 5M): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + f"; main {total:.2f}")
+    with np.load(npz) as f:
+        d = {k: f[k] for k in f.files}
+    nsurf = min(P9_NSURF, mesh_sampler.ON_SURF_CAP)
+    want = {"pts_grid": (P9_GRID + (3,), np.float32),
+            "sdf_grid": (P9_GRID, np.float64),
+            "tex_grid": (P9_GRID + (3,), np.float64),
+            "pts_on_surf": ((nsurf, 3), np.float64),
+            "tex_on_surf": ((nsurf, 3), np.float64),
+            "pts_near_surf": ((P9_NSURF, 3), np.float64),
+            "sdf_near_surf": ((P9_NSURF,), np.float64),
+            "tex_near_surf": ((P9_NSURF, 3), np.float64),
+            "aabb": ((6,), np.float64), "threshold": ((), np.float64),
+            "Ka": ((3,), np.float64), "Kd": ((3,), np.float64),
+            "Ks": ((3,), np.float64), "Ns": ((), np.float64)}
+    schema = {k: (tuple(v.shape), v.dtype) for k, v in d.items()}
+    bad = {k: schema.get(k) for k, w in want.items() if schema.get(k) != w}
+    mib = os.path.getsize(npz) / 2 ** 20
+    print(f"mesh sampler npz: {len(d)} keys, {mib:.1f} MiB on disk; schema "
+          f"{'as the AE reads it' if not bad else bad}")
+    if bad or sorted(d) != sorted(want):
+        fail(f"mesh sampler npz: schema {bad}, keys {sorted(d)}")
+    thr = float(d["threshold"])
+    tol = shape["chord"] * shape["scale"] + 2e-6
+    checks = {
+        "grid_sdf": p9_sdf_check(shape, d["pts_grid"].reshape(-1, 3).astype(
+            np.float64), d["sdf_grid"].reshape(-1), thr, "grid", tol),
+        "near_sdf": p9_sdf_check(shape, d["pts_near_surf"],
+                                 d["sdf_near_surf"], thr, "near-surface",
+                                 tol)}
+    on, _, _ = p9_analytic(shape, d["pts_on_surf"])
+    checks["on_surf_abs_sdf"] = float(np.abs(on).max())
+    if checks["on_surf_abs_sdf"] > tol:
+        fail(f"mesh sampler: on-surface points {checks['on_surf_abs_sdf']} "
+             "off the shape")
+    mask = np.abs(d["sdf_grid"].reshape(-1)) < thr
+    checks["grid_tex"] = p9_colour_check(
+        shape, d["pts_grid"].reshape(-1, 3)[mask].astype(np.float64),
+        d["tex_grid"].reshape(-1, 3)[mask], "grid")
+    checks["on_tex"] = p9_colour_check(shape, d["pts_on_surf"],
+                                       d["tex_on_surf"], "on-surface")
+    nmask = np.abs(d["sdf_near_surf"]) < thr
+    checks["near_tex"] = p9_colour_check(shape, d["pts_near_surf"][nmask],
+                                         d["tex_near_surf"][nmask],
+                                         "near-surface")
+    del d
+    ae = p9_ae_steps(npz)
+    os.remove(npz)
+    # reso 64 through the watertight remesh
+    npz64 = os.path.join(tmp, "shape64.npz")
+    t0 = time.perf_counter()
+    secs64 = mesh_sampler.main(["-s", shape["obj"], "-d", npz64, "--reso",
+                                "64", "--n_surf", str(P9_NSURF_REMESH)])
+    total64 = time.perf_counter() - t0
+    print("mesh sampler seconds per stage (reso 64, remesh): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs64.items()) + f"; main {total64:.2f}")
+    wt = load_obj_scene(shape["obj"].replace(".obj",
+                                             "_watertight_r100000.obj"))
+    with np.load(npz64) as f:
+        pts = f["pts_grid"].reshape(-1, 3).astype(np.float64)
+        sdf = f["sdf_grid"]
+    # the remesh's marching cubes lies within one cell of its winding-
+    # number grid (64 points along the longest axis, padded by 3 % of it
+    # on each side) of the surface; in normalized units the longest axis
+    # is 2 / 1.03
+    cell = 2 / 1.03 * 1.06 / 63
+    ref, _, _ = p9_analytic(shape, pts)
+    far = np.abs(ref) > 2 * cell
+    flips = int((np.sign(sdf.reshape(-1)[far]) != np.sign(ref[far])).sum())
+    remesh = {"faces": len(wt["faces"]), "grid": list(sdf.shape),
+              "cell": cell, "checked": int(far.sum()), "sign_flips": flips}
+    print(f"mesh sampler remesh: {remesh}")
+    if flips or not far.any():
+        fail(f"mesh sampler: the remeshed SDF's signs differ ({remesh})")
+    return {"shape": {k: shape[k] for k in ("faces", "chord")},
+            "grid": list(grid), "cores": cores, "seconds": secs,
+            "main_seconds": total, "checks": checks, "ae": ae,
+            "remesh_seconds": secs64, "remesh_main_seconds": total64,
+            "remesh": remesh, "obj": shape["obj"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: evaluation on the card
+# ---------------------------------------------------------------------------
+
+GRIDS = os.path.join(TAG, "results_parity", "{:03d}", "r256_voxel.npz")
+# JAX's LP and Div of the committed grids 001-015 against grid 000, made
+# in the JAX package's environment on the CPU by
+#   python -c "import numpy as np; from sin3dm_tpu.evaluation import
+#   patch_metrics as pm; P = 'checkpoints/towerruins/results_parity/%03d/
+#   r256_voxel.npz'; ref = pm.pool_to(np.load(P % 0)['vox_grid']); gen =
+#   [pm.load_voxel_npz(P % i) for i in range(1, 16)]; r =
+#   pm.eval_lp_full(gen, ref); r['Div'] = pm.eval_div(gen); print(r)"
+P10_JAX = {"LP-IOU-avg": 0.9377148350079855,
+           "LP-IOU-percent": 0.5679843204787483,
+           "LP-F-score-avg": 0.9665491819381714,
+           "LP-F-score-percent": 0.8218088515089169,
+           "Div": 0.12860178770699623}
+P10_JAX_TOL = 1e-6
+# card against host in eval_full: LP and Div absolute, the rest relative
+P10_TOL = {"LP": 1e-6, "Div": 1e-6, "SSFID": 1e-4, "mv_sifid": 1e-4,
+           "mv_lpips": 1e-5}
+
+
+def p10_ref_npz(path: str) -> None:
+    """Grid 000 as the reference shape's SDF npz (-1 inside, +1 out)."""
+    import numpy as np
+    with np.load(GRIDS.format(0)) as f:
+        vox = f["vox_grid"]
+    with open(path, "wb") as fh:
+        np.savez(fh, sdf_grid=np.where(vox, -1.0, 1.0).astype(np.float32))
+
+
+def p10_lp(ref_npz: str) -> dict:
+    """10a. LP (avg, percent) and Div of grids 001-015 against grid 000 on
+    the card and on the host: each grid's per-patch arrays equal bit for
+    bit, both within P10_JAX_TOL of JAX's values."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.evaluation import patch_metrics as pm
+    out, arrays = {}, {}
+    for side, dev in (("card", torch.device("cuda")),
+                      ("host", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        ref = pm.load_sdf_npz_as_voxel(ref_npz, device=dev)
+        gens = [pm.load_voxel_npz(GRIDS.format(i), device=dev)
+                for i in range(1, 16)]
+        patches = pm.extract_patches(ref)
+        arrays[side] = [pm.lp_score_arrays(g, patches) for g in gens]
+        res = pm.eval_lp_full(gens, ref)
+        res["Div"] = pm.eval_div(gens)
+        res["seconds"] = time.perf_counter() - t0
+        res["ref_patches"] = len(patches)
+        out[side] = res
+    same = all(np.array_equal(a, b) and a.dtype == b.dtype
+               for ca, ha in zip(arrays["card"], arrays["host"])
+               for a, b in zip(ca, ha))
+    errs = {side: max(abs(out[side][k] - v) for k, v in P10_JAX.items())
+            for side in out}
+    n = [len(a[0]) for a in arrays["host"]]
+    print(f"eval 10a: 15 grids against grid 000 ({out['host']['ref_patches']} "
+          f"reference patches, {min(n)}-{max(n)} per grid): card "
+          f"{json.dumps({k: out['card'][k] for k in P10_JAX})} in "
+          f"{out['card']['seconds']:.2f} s, host in "
+          f"{out['host']['seconds']:.2f} s; per-patch arrays card = host bit "
+          f"for bit: {same}; from JAX's values: card {errs['card']:.3e}, "
+          f"host {errs['host']:.3e} (tolerance {P10_JAX_TOL})")
+    if not same or max(errs.values()) > P10_JAX_TOL:
+        fail("eval 10a: LP/Div off JAX's values or card off the host")
+    return {"card": out["card"], "host": out["host"],
+            "per_patch_equal": same, "jax_err": errs}
+
+
+def p10_weights(dirpath: str) -> list:
+    """The four metric weight files in their published layouts, from the
+    port's modules filled by a fixed generator (He-scaled conv and linear
+    weights, small biases, randomized BatchNorm running stats), as
+    eval_full flags."""
+    import torch
+    from sin3dm_tpu_torch.evaluation import lpips, sifid, ssfid
+    g = torch.Generator().manual_seed(10)
+
+    def fill(module):
+        sd = module.state_dict()
+        for k, t in sd.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            if k.endswith("running_var") or k.endswith("bn.weight"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif k.endswith("weight") and t.dim() > 1:
+                fan_in = t[0].numel()
+                t.copy_(torch.randn(t.shape, generator=g)
+                        * (2.0 / fan_in) ** 0.5)
+            else:
+                t.copy_(0.05 * torch.randn(t.shape, generator=g))
+        return sd
+
+    files = {
+        "ssfid_weights": fill(ssfid.Clsshapenet()),
+        "inception_weights": fill(sifid.InceptionFeatures(2048)),
+        "alexnet_weights": fill(lpips.AlexNetFeatures()),
+        "lpips_weights": {f"lpips_weights.{i}.main.1.weight":
+                          torch.rand(1, c[1], 1, 1, generator=g)
+                          for i, c in enumerate(lpips.AlexNetFeatures.CFG)},
+    }
+    os.makedirs(dirpath, exist_ok=True)
+    flags = []
+    for name, sd in files.items():
+        path = os.path.join(dirpath, f"{name}.pth")
+        torch.save(sd, path)
+        flags.append(f"--{name}={path}")
+    return flags
+
+
+def p10_eval_full(tmp: str, mesh_dir: str, obj9: str) -> dict:
+    """10b. `eval_full.main` over the mesh path's 2 samples (voxel.npz and
+    8 renders at 512 by the port's renderer) and the 15 committed grids,
+    against grid 000 and renders of phase 9's OBJ, with seeded weights:
+    on the card, then on the host; every metric within P10_TOL."""
+    import numpy as np
+    from sin3dm_tpu_torch.evaluation import eval_full
+    from sin3dm_tpu_torch.rendering import softraster
+    src, ref = os.path.join(tmp, "results"), os.path.join(tmp, "ref")
+    for j in range(2):
+        d = os.path.join(src, f"{j:03d}")
+        os.makedirs(d)
+        for name in ("voxel.npz", "object.obj", "object.mtl", "object.png"):
+            shutil.copy(os.path.join(mesh_dir, f"{j:03d}", name), d)
+    t0 = time.perf_counter()
+    softraster.main(["-s", src])
+    gen_render = time.perf_counter() - t0
+    for i in range(1, 16):
+        d = os.path.join(src, f"{i + 1:03d}")
+        os.makedirs(d)
+        shutil.copy(GRIDS.format(i), d)
+    os.makedirs(ref)
+    p10_ref_npz(os.path.join(ref, "grid000.npz"))
+    t0 = time.perf_counter()
+    softraster.render_multiview(obj9, os.path.join(ref, "renderings"))
+    ref_render = time.perf_counter() - t0
+    views = 8 * 3
+    print(f"eval 10b: renders at 512: {gen_render:.2f} s for 2 samples "
+          f"(~10,000 faces), {ref_render:.2f} s for the reference "
+          f"(~100,000 faces); {(gen_render + ref_render) / views:.3f} s per "
+          "view")
+    flags = p10_weights(os.path.join(tmp, "weights"))
+    out, secs = {}, {}
+    for side, dev in (("card", "cuda"), ("host", "cpu")):
+        secs[side] = {}
+        t0 = time.perf_counter()
+        out[side] = eval_full.main(
+            ["-s", src, "-r", ref, "-o", os.path.join(tmp, f"{dev}.json"),
+             "--device", dev, *flags], seconds=secs[side])
+        secs[side]["main"] = time.perf_counter() - t0
+    errs = {}
+    for k, want in out["host"].items():
+        tol = next(t for p, t in P10_TOL.items() if k.startswith(p))
+        err = abs(out["card"][k] - want)
+        rel = not k.startswith(("LP", "Div")) and want != 0
+        errs[k] = (err / abs(want) if rel else err, tol)
+    print("eval 10b: card " + json.dumps(out["card"]))
+    print("eval 10b: host " + json.dumps(out["host"]))
+    print("eval 10b: card vs host (error, tolerance): " + json.dumps(errs))
+    print("eval 10b: seconds per metric, card " + json.dumps(secs["card"])
+          + ", host " + json.dumps(secs["host"]))
+    keys = {"LP-IOU-avg", "LP-IOU-percent", "LP-F-score-avg",
+            "LP-F-score-percent", "LP_IOU", "LP_F_score", "Div", "SSFID_avg",
+            "SSFID_std", "mv_sifid_dim64", "mv_sifid_dim192", "mv_lpips"}
+    if set(out["card"]) != keys or set(out["host"]) != keys:
+        fail(f"eval 10b: keys {sorted(out['card'])}")
+    if any(not np.isfinite(v) for v in out["card"].values()) or any(
+            e > t for e, t in errs.values()):
+        fail("eval 10b: card and host metrics differ")
+    return {"card": out["card"], "host": out["host"], "errors": errs,
+            "seconds": secs, "render_s_per_view":
+            (gen_render + ref_render) / views}
+
+
+def phase10(tmp: str, mesh_dir: str, obj9: str) -> dict:
+    ref_npz = os.path.join(tmp, "grid000.npz")
+    p10_ref_npz(ref_npz)
+    lp = p10_lp(ref_npz)
+    full = p10_eval_full(tmp, mesh_dir, obj9)
+    return {"lp": lp, "eval_full": full}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -2302,11 +2822,10 @@ def main() -> int:
         mesh_res, mesh_counts, mesh_dir, mesh_secs = drive_mesh(
             mesh_argv, want(n_steps), aabb, margs.reso, margs.texreso,
             margs.n_faces, slabs)
-    try:
-        # 4f. the card against the plain path on sample 0's feat.npz
-        parity = card_vs_plain(os.path.join(mesh_dir, "000", "feat.npz"))
-    finally:
-        shutil.rmtree(mesh_dir, ignore_errors=True)
+    # its samples stay for phase 10b; the directory goes at exit
+    atexit.register(shutil.rmtree, mesh_dir, ignore_errors=True)
+    # 4f. the card against the plain path on sample 0's feat.npz
+    parity = card_vs_plain(os.path.join(mesh_dir, "000", "feat.npz"))
 
     # 5. where a chain step's time goes, per configuration
     prof = {}
@@ -2351,6 +2870,23 @@ def main() -> int:
 
     # 8. AE training at the encoding's full width
     ae8 = phase8()
+
+    # 9. data preparation, 10. evaluation on the card (4e's samples are
+    # evaluated in 10b); neither launches K1 or K2
+    ends = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_ends_")
+    try:
+        reset_counts()
+        prep = phase9(ends)
+        evals = phase10(ends, mesh_dir, prep["obj"])
+        ends_counts = read_counts()
+    finally:
+        shutil.rmtree(ends, ignore_errors=True)
+    print(f"data preparation and evaluation: K1 launches "
+          f"{ends_counts['k1']}, K2 launches {ends_counts['k2']} (want 0, 0)")
+    if ends_counts["k1"] or ends_counts["k2"]:
+        fail("phases 9-10 launched K1 or K2")
+    print("data preparation: " + json.dumps(prep, default=float))
+    print("evaluation: " + json.dumps(evals, default=float))
 
     # 7. results
     def row(name, source, replaces, launches, r, **extra):

@@ -21,9 +21,11 @@ The two Pallas TPU kernels of the reference are hand-written CUDA C++
 kernels here (`csrc/`), bound with ctypes (`ops/`).  On a CPU tensor each
 wrapper computes its plain PyTorch version instead.
 
-Slice 1 covers generation from a trained tag to voxel grids
-(`cli/sample.py --vox`); the mesh path, training, evaluation and serving
-are listed in ROADMAP.md.
+The port covers the pipeline from a textured OBJ to scored samples:
+data preparation (`dataio/mesh_sampler.py`), AE and diffusion training
+(`cli/train.py`), generation to meshes or voxel grids (`cli/sample.py`),
+rendering (`rendering/softraster.py`) and evaluation
+(`evaluation/eval_full.py`); what remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Host-side grid helpers."""
+"""Mesh -> training-data samplers."""

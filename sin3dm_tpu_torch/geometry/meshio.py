@@ -1,9 +1,10 @@
 """Mesh and texture export (counterpart of `sin3dm_tpu/geometry/meshio.py`):
 OBJ+MTL+PNG, the PBR set under `textures/`, and a glTF 2.0 binary (GLB)
 writer.  The OBJ and MTL text is the JAX package's byte for byte.  PNG is
-written with the standard library (`encode_png`), as the machines the
-port runs on need carry neither OpenCV nor PIL: the file may differ from
-theirs, its pixels do not.
+written and read with the standard library (`encode_png`, `decode_png`),
+as the machines the port runs on need carry neither OpenCV nor PIL: a
+written file may differ from theirs, its pixels do not, and a read gives
+PIL's bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +60,146 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color_type,
                                          0, 0, 0))
             + chunk(b"IDAT", idat) + chunk(b"IEND", b""))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples per pixel, for the 8-bit depth read here
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter_average(line: bytes, prior: bytes, bpp: int) -> bytes:
+    cur = bytearray(line)
+    for i in range(len(cur)):
+        left = cur[i - bpp] if i >= bpp else 0
+        cur[i] = (cur[i] + ((left + prior[i]) >> 1)) & 0xFF
+    return bytes(cur)
+
+
+def _unfilter_paeth(line: bytes, prior: bytes, bpp: int) -> bytes:
+    cur = bytearray(line)
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+    return bytes(cur)
+
+
+def _unfilter(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
+    """Undo the PNG scanline filters (types 0-4) of `rows` `[H, 1 + S]`;
+    Sub and Up are vectorised, Average and Paeth run byte by byte."""
+    H, S = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((H, S), np.uint8)
+    prior = np.zeros(S, np.uint8)
+    for y in range(H):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prior
+        elif kind == 3:
+            cur = np.frombuffer(_unfilter_average(
+                line.tobytes(), prior.tobytes(), bpp), np.uint8)
+        elif kind == 4:
+            cur = np.frombuffer(_unfilter_paeth(
+                line.tobytes(), prior.tobytes(), bpp), np.uint8)
+        else:
+            raise ValueError(f"{name}: PNG row {y} has filter type {kind}")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
+def decode_png(src, mode: Optional[str] = None) -> np.ndarray:
+    """The pixels of an 8-bit, non-interlaced PNG (a path or the file's
+    bytes) as uint8, read with the standard library, equal to PIL's:
+
+    - `mode=None`: `np.asarray(Image.open(src))`: `[H, W]` grey or palette
+      indices, `[H, W, 2]` grey+alpha, `[H, W, 3]` RGB, `[H, W, 4]` RGBA;
+    - `mode="RGB"` / `"RGBA"`: `Image.open(src).convert(mode)`: grey
+      repeated, the palette looked up, a tRNS chunk turned into alpha
+      (RGBA only), alpha 255 where there is none.
+
+    Anything else (JPEG or another format, a bit depth other than 8, an
+    interlaced PNG) raises ValueError naming the file and what it is."""
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        data, name = bytes(src), "<png bytes>"
+    else:
+        name = os.fspath(src)
+        with open(name, "rb") as fh:
+            data = fh.read()
+    if mode not in (None, "RGB", "RGBA"):
+        raise ValueError(f"decode_png: mode {mode!r} is not None, 'RGB' or "
+                         "'RGBA'")
+    if not data.startswith(_PNG_SIGNATURE):
+        kind = ("a JPEG file" if data[:3] == b"\xff\xd8\xff"
+                else "not a PNG file")
+        raise ValueError(f"{name}: {kind}; without PIL the port reads only "
+                         "8-bit non-interlaced PNG")
+    ihdr, plte, trns, idat = None, None, None, []
+    pos = len(_PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError(f"{name}: truncated PNG chunk {tag!r}")
+        pos += 12 + length
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = body
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{name}: PNG without an IHDR chunk")
+    W, H, depth, ctype, compression, filtering, interlace = ihdr
+    C = _PNG_CHANNELS.get(ctype)
+    if depth != 8 or C is None:
+        raise ValueError(f"{name}: PNG of bit depth {depth}, colour type "
+                         f"{ctype}; without PIL the port reads only 8-bit "
+                         "grey, grey+alpha, RGB, RGBA and palette PNG")
+    if interlace != 0 or compression != 0 or filtering != 0:
+        raise ValueError(f"{name}: interlaced or non-standard PNG "
+                         f"(interlace {interlace}); without PIL the port "
+                         "reads only non-interlaced PNG")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < H * (1 + W * C):
+        raise ValueError(f"{name}: {len(raw)} bytes of scanlines for "
+                         f"{H} rows of {W * C}")
+    rows = np.frombuffer(raw, np.uint8, H * (1 + W * C)).reshape(H, -1)
+    img = _unfilter(rows, C, name).reshape(H, W, C)
+    if mode is None:
+        return img[..., 0] if C == 1 else img
+    if ctype == 3:
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:, 3] = 255
+        pal[:len(plte), :3] = plte
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            pal[:len(alpha), 3] = alpha
+        rgba = pal[img[..., 0]]
+    else:
+        rgb = img[..., :3] if C >= 3 else np.repeat(img[..., :1], 3, -1)
+        if C in (2, 4):
+            alpha = img[..., -1]
+        else:
+            alpha = np.full((H, W), 255, np.uint8)
+            if trns is not None:
+                key = np.frombuffer(trns, ">u2")[:C]
+                alpha[(img == key).all(axis=-1)] = 0
+        rgba = np.concatenate([rgb, alpha[..., None]], axis=-1)
+    return np.ascontiguousarray(rgba[..., :len(mode)])
 
 
 def _save_png(path: str, img: np.ndarray) -> None:

@@ -26,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Tuple
 
@@ -147,6 +149,26 @@ def _declare(L: ctypes.CDLL) -> None:
     L.geo_oriented_rect_angles.argtypes = [c_double_p, c_ll_p, ctypes.c_int,
                                            c_double_p]
     L.geo_oriented_rect_angles.restype = None
+    L.geo_bvh_build.argtypes = [c_float_p, ctypes.c_int, c_int_p,
+                                ctypes.c_int]
+    L.geo_bvh_build.restype = ctypes.c_void_p
+    L.geo_bvh_destroy.argtypes = [ctypes.c_void_p]
+    L.geo_bvh_destroy.restype = None
+    L.geo_bvh_closest.argtypes = [ctypes.c_void_p, c_float_p, ctypes.c_int,
+                                  c_float_p, c_int_p, c_float_p]
+    L.geo_bvh_closest.restype = None
+    L.geo_bvh_winding.argtypes = [ctypes.c_void_p, c_float_p, ctypes.c_int,
+                                  c_float_p]
+    L.geo_bvh_winding.restype = None
+    L.geo_bvh_signed_distance.argtypes = [ctypes.c_void_p, c_float_p,
+                                          ctypes.c_int, c_float_p, c_int_p,
+                                          c_float_p]
+    L.geo_bvh_signed_distance.restype = None
+    L.geo_render_view.argtypes = [
+        c_double_p, c_double_p, c_double_p, ctypes.c_int, c_int_p, c_int_p,
+        ctypes.c_int, c_float_p, ctypes.c_int, c_double_p, c_int_p,
+        c_float_p, c_float_p]
+    L.geo_render_view.restype = None
 
 
 def lib() -> ctypes.CDLL:
@@ -361,3 +383,114 @@ def oriented_rect_angles(uv_list) -> np.ndarray:
         cat.ctypes.data_as(c_double_p), offsets.ctypes.data_as(c_ll_p), n,
         out.ctypes.data_as(c_double_p))
     return out
+
+
+def _query_threads() -> int:
+    """Threads over which `MeshBVH` splits a query: 1 where the library
+    runs its own OpenMP loop, else the cores this process may use."""
+    if "-fopenmp" in build_flags():
+        return 1
+    return len(os.sched_getaffinity(0))
+
+
+class MeshBVH:
+    """Closest-point and fast-winding-number queries on a triangle mesh
+    (the library's BVH over float32 vertices and int32 faces).
+
+    Every query point is answered on its own, so where the library was
+    built without OpenMP the points are split into contiguous chunks that
+    threads hand to the library at once (ctypes releases the interpreter
+    lock): the same outputs, bit for bit, as one call."""
+
+    _MIN_CHUNK = 16384
+
+    def __init__(self, verts: np.ndarray, faces: np.ndarray):
+        self._v = _f32(verts).reshape(-1, 3)
+        self._f = _i32(faces).reshape(-1, 3)
+        L = lib()
+        self._h = L.geo_bvh_build(
+            self._v.ctypes.data_as(c_float_p), len(self._v),
+            self._f.ctypes.data_as(c_int_p), len(self._f))
+        if not self._h:
+            raise MemoryError("geo_bvh_build returned no tree")
+        # the finalizer holds the library's function, so the tree is freed
+        # before the library can be unloaded, at collection or at exit
+        weakref.finalize(self, L.geo_bvh_destroy, self._h)
+
+    def _run(self, fn, pts: np.ndarray, outs) -> None:
+        """`fn(handle, points, n, *outs)` over `pts` `[N, 3]`, in chunks
+        over threads where the library is serial; each output `[N, ...]`
+        is written in place."""
+        n = len(pts)
+        threads = min(_query_threads(), max(1, n // self._MIN_CHUNK))
+
+        def call(lo: int, hi: int) -> None:
+            fn(self._h, pts[lo:hi].ctypes.data_as(c_float_p), hi - lo,
+               *(o[lo:hi].ctypes.data_as(
+                   c_int_p if o.dtype == np.int32 else c_float_p)
+                 for o in outs))
+
+        if threads <= 1:
+            call(0, n)
+            return
+        bounds = np.linspace(0, n, threads * 4 + 1).astype(np.int64)
+        with ThreadPoolExecutor(threads) as pool:
+            for fut in [pool.submit(call, int(lo), int(hi))
+                        for lo, hi in zip(bounds[:-1], bounds[1:])
+                        if hi > lo]:
+                fut.result()
+
+    def closest(self, pts: np.ndarray):
+        """-> (distance [N], face [N], barycentric [N, 3]), float32/int32."""
+        p = _f32(pts).reshape(-1, 3)
+        n = len(p)
+        out = (np.empty(n, np.float32), np.empty(n, np.int32),
+               np.empty((n, 3), np.float32))
+        self._run(lib().geo_bvh_closest, p, out)
+        return out
+
+    def winding(self, pts: np.ndarray) -> np.ndarray:
+        """Generalised winding number [N] float32 (1 inside, 0 outside)."""
+        p = _f32(pts).reshape(-1, 3)
+        w = np.empty(len(p), np.float32)
+        self._run(lib().geo_bvh_winding, p, (w,))
+        return w
+
+    def signed_distance(self, pts: np.ndarray):
+        """-> (sdf [N], negative where the winding number exceeds 0.5,
+        face [N], barycentric [N, 3])."""
+        p = _f32(pts).reshape(-1, 3)
+        n = len(p)
+        out = (np.empty(n, np.float32), np.empty(n, np.int32),
+               np.empty((n, 3), np.float32))
+        self._run(lib().geo_bvh_signed_distance, p, out)
+        return out
+
+
+def render_view_raster(px: np.ndarray, py: np.ndarray, z: np.ndarray,
+                       faces: np.ndarray, order: np.ndarray,
+                       face_uvs: np.ndarray, res: int):
+    """Z-buffered perspective rasterization of projected vertices in paint
+    order: per-pixel (zbuf float64, face id int32 (-1 where empty), u, v
+    float32) maps `[res, res]`."""
+    pxa = np.ascontiguousarray(px, np.float64)
+    pya = np.ascontiguousarray(py, np.float64)
+    za = np.ascontiguousarray(z, np.float64)
+    f = _i32(faces).reshape(-1)
+    o = _i32(order).reshape(-1)
+    uv = _f32(face_uvs).reshape(-1)
+    nt = len(f) // 3
+    if len(o) != nt or len(uv) != nt * 6:
+        raise ValueError(f"render_view_raster: {nt} faces, {len(o)} in the "
+                         f"paint order, {len(uv)} uv values")
+    zbuf = np.full((res, res), np.inf, np.float64)
+    face_id = np.full((res, res), -1, np.int32)
+    u = np.zeros((res, res), np.float32)
+    v = np.zeros((res, res), np.float32)
+    lib().geo_render_view(
+        pxa.ctypes.data_as(c_double_p), pya.ctypes.data_as(c_double_p),
+        za.ctypes.data_as(c_double_p), len(pxa), f.ctypes.data_as(c_int_p),
+        o.ctypes.data_as(c_int_p), nt, uv.ctypes.data_as(c_float_p), res,
+        zbuf.ctypes.data_as(c_double_p), face_id.ctypes.data_as(c_int_p),
+        u.ctypes.data_as(c_float_p), v.ctypes.data_as(c_float_p))
+    return zbuf, face_id, u, v

@@ -115,8 +115,9 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got[settled], want[settled])
 
 
-# the modules of the stats-chain, fused-act, --inpaint, mesh and training
-# paths, named so that the walk cannot miss them
+# the modules of the stats-chain, fused-act, --inpaint, mesh, training,
+# data-preparation and evaluation paths, named so that the walk cannot
+# miss them; none may bring in jax, the JAX package, cv2 or PIL
 CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.models.unet",
            "sin3dm_tpu_torch.diffusion.gaussian",
@@ -134,7 +135,17 @@ CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.core.profiling", "sin3dm_tpu_torch.core.rng",
            "sin3dm_tpu_torch.diffusion.resample",
            "sin3dm_tpu_torch.training.diffusion",
-           "sin3dm_tpu_torch.training.adamw"}
+           "sin3dm_tpu_torch.training.adamw",
+           # data preparation and evaluation
+           "sin3dm_tpu_torch.dataio.grid",
+           "sin3dm_tpu_torch.dataio.mesh_sampler",
+           "sin3dm_tpu_torch.dataio.mesh_sampler_pbr",
+           "sin3dm_tpu_torch.rendering.softraster",
+           "sin3dm_tpu_torch.evaluation.patch_metrics",
+           "sin3dm_tpu_torch.evaluation.ssfid",
+           "sin3dm_tpu_torch.evaluation.sifid",
+           "sin3dm_tpu_torch.evaluation.lpips",
+           "sin3dm_tpu_torch.evaluation.eval_full"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
