@@ -18,7 +18,9 @@ of this repository.  Phases, each printing its results:
    wrapper's host time per launch: K1's default form and K1′ (act,
    act+stats, act+skip+stats) at every shape where a configuration runs
    them, each triplane launch (weights packed once, as the UNet passes
-   them) also against its three single-plane launches, bit for bit;
+   them) also against its three single-plane launches, bit for bit; at
+   batch 2 (the main path's) with times, and checked once more, untimed,
+   at batch 1 (serving's chains and the bpd loop, phase 11);
 4. main path: `cli.sample.main(--tag checkpoints/towerruins --vox
    --n_samples 2)` (DDPM-1000, batch 2, --reso 256) with the launch
    counters set to 0 just before and read just after, output checks and
@@ -100,6 +102,25 @@ of this repository.  Phases, each printing its results:
    and the 15 grids against grid 000 and renders of phase 9's OBJ, with
    seeded weights in the 4 published layouts: every metric within
    P10_TOL, seconds per metric on both, render seconds per view;
+11. serving and the diffusion library, in a temporary checkpoints root
+   (the committed tag linked, and its weights written in the reference's
+   torch format by `cli.import_torch_ckpt --reverse`): 11a the torch
+   files' transplanted UNet and AE trees equal the npz tag's bit for
+   bit, the trainer loads both the same on the card, and `--vox`
+   DDIM-10 from each tag gives the same feat.npz and grids; 11b
+   `cli.app.build_http_server` on a thread: GET / lists both tags; a JSON
+   DDIM-100 request of 2 samples, a form-encoded DDPM-1000 one, the JSON
+   one against the reference tag (its sample 0 equal to the first's),
+   two tags outside the root (400, nothing written), and two requests in
+   parallel threads (each equal to the same request served alone), every
+   GLB checked (glTF 2, one mesh of <= 10,000 faces inside the AABB, a
+   2048x2048 PNG) and K1 and K2 counted around each request; 11c at full
+   width on the committed EMA and feat.npz: the progressive loops' last
+   snapshots equal the plain loops, a zero cond_fn equals the unguided
+   chain (through condition_score and condition_mean), a pull towards
+   feat.npz ends nearer it, a DDIM-10 round trip and vb_terms_bpd at
+   t in {0, 1, 500, 999} in fp32 on the card against the host, a bf16
+   DDIM-100 round trip, and calc_bpd_loop over T = 1000 (K1 8,000);
 7. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -385,7 +406,7 @@ def k1_bound_parts(B, planes, C, Co, form):
     return flops, nbytes
 
 
-def check_k1_forms(B: int):
+def check_k1_forms(B: int, timed: bool = True):
     """K1 and K1′ against their plain versions at every main-path plane
     shape where a form runs (default and act everywhere, the stats forms
     where the stats chain puts them), bf16 and fp32, one plane at a time;
@@ -399,7 +420,9 @@ def check_k1_forms(B: int):
     by events), library_default_ms, library_benchmark_ms,
     library_device_ms (the faster by device time), flops, nbytes,
     max_abs_err, launches, and default_ms / default_device_ms: the default
-    form over the same launches} per forward of its configuration."""
+    form over the same launches} per forward of its configuration.  With
+    `timed` false it only checks, and each form's entry holds its
+    max_abs_err."""
     import torch
     from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout,
                                                  conv3x3_rollout_reference,
@@ -467,6 +490,8 @@ def check_k1_forms(B: int):
             print(f"K1 {form} C={C} Co={Co} planes {list(planes)}: triplane "
                   "launch equals the three single-plane launches bit for "
                   "bit (bf16, fp32)")
+            if not timed:
+                continue
             ta = triplane_args(ops, torch.bfloat16, form)
             per = [plane_args(op, torch.bfloat16, form) for op in ops]
             def launch():
@@ -504,6 +529,10 @@ def check_k1_forms(B: int):
                          ("flops", flops), ("nbytes", nbytes)):
                 f[k] += n * v
             f["launches"] += n
+    print(f"K1 (batch {B}): {n_bitwise} triplane planes equal their "
+          "single-plane launches bit for bit")
+    if not timed:
+        return forms
     for form, f in forms.items():
         f["bound_ms"], f["bound_by"] = bound(f["flops"], f["nbytes"],
                                              PEAK_BF16_FLOPS)
@@ -516,8 +545,6 @@ def check_k1_forms(B: int):
               f"{f['library_benchmark_ms']:.4f}; device "
               f"{f['library_device_ms']:.4f}), bound {f['bound_ms']:.5f} "
               f"ms ({f['bound_by']})")
-    print(f"K1: {n_bitwise} triplane planes equal their single-plane "
-          "launches bit for bit")
     return forms
 
 
@@ -2716,6 +2743,708 @@ def phase10(tmp: str, mesh_dir: str, obj9: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: serving and the diffusion library
+# ---------------------------------------------------------------------------
+
+# the app's request parameters at its defaults (the page's and gradio's)
+P11_REQ = {"reso": 256, "texreso": 2048, "n_faces": 10000,
+           "resize_x": 1.0, "resize_y": 1.0, "resize_z": 1.0}
+# 11c, card against host in fp32 with TF32 off (set before the first run
+# on the card).  One forward: pred_xstart within 1e-4 of its largest
+# |value| (6a's rule for one step's leaves).  The DDIM-10 round trip,
+# x_T and x_0 each within 1e-4 of each plane's largest |value|, set from
+# scripts/torch_roundtrip_gain.py on the CPU at a 24x32x24 crop, where a
+# relative error put on every one of the 20 forwards moved them by at
+# most 2.6x that error.  At the full 92x128x92 planes the same script
+# reads 16-17x for x_T and 3.4-3.8x for x_0 on the card and on its host
+# (PERF.md, Findings), so at full size the bound admits a forward's
+# card-host difference up to ~6e-6 of its output.
+P11_FORWARD_TOL = 1e-4
+P11_ROUND_TRIP_TOL = 1e-4
+# vb_terms_bpd's output: the bits that the model mean's allowed
+# difference (posterior_mean_coef1 * P11_FORWARD_TOL * max |pred_xstart|,
+# either way, the larger) moves each element's term by, averaged, plus the
+# evaluation's own rounding: 1e-5 of the output, 1e-3 at t = 0, where the
+# decoder NLL takes the log of cdf(x + 1/255) - cdf(x - 1/255), two close
+# values that two tanh implementations round apart
+# (tests/test_torch_port_guidance_bpd.py, NLL_REL)
+P11_VB_REL = {0: 1e-3}
+P11_VB_REL_T = 1e-5
+# 11c's guidance: grad log p(feat | x) of a Gaussian around the tag's
+# feat.npz, s * (feat - x)
+P11_GUIDE = 0.5
+# where phase 11 runs, and the --vox runs' flags (11a)
+P11_DEVICE = "cuda"
+P11_VOX = ["--vox", "--use_ddim", "true", "--timestep_respacing", "ddim10",
+           "--n_samples", "2"]
+
+
+def p11_tags(tmp: str):
+    """A temporary checkpoints root holding the committed tag (its
+    encoding and diffusion dirs linked) and the same weights in the
+    reference's torch format (`cli.import_torch_ckpt --reverse`)."""
+    from sin3dm_tpu_torch.cli import import_torch_ckpt
+    root = os.path.join(tmp, "checkpoints")
+    tag = os.path.join(root, "towerruins")
+    os.makedirs(tag)
+    for sub in ("encoding", "diffusion"):
+        os.symlink(os.path.join(TAG, sub), os.path.join(tag, sub))
+    ref = os.path.join(root, "towerruins_ref")
+    import_torch_ckpt.main(["--reverse", "--src", TAG, "--dst", ref])
+    return root, tag, ref
+
+
+def p11_same_trees(label: str, got, want) -> None:
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    g, w = ckpt.leaves_with_paths(got), ckpt.leaves_with_paths(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        fail(f"{label}: the trees' leaf paths differ")
+    bad = [p for (p, a), (_, b) in zip(g, w)
+           if not (a.dtype == b.dtype and (a == b).all())]
+    print(f"{label}: {len(g)} leaves, bit for bit equal: {not bad}")
+    if bad:
+        fail(f"{label}: leaves differ, first {bad[:3]}")
+
+
+def p11_vox(label: str, tag: str, out: str, want_forms: dict,
+            want_k2: int):
+    """`cli.sample --vox` DDIM-10 of 2 samples from `tag` into `out`, the
+    launches counted; returns {sample: {name: array}}."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    reset_counts()
+    res = cli.main(["--tag", tag, "--output", out] + P11_VOX)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"{label}: K1 launches by form {counts['k1_forms']} (want "
+          f"{want_forms}), K2 {counts['k2']} (want {want_k2})")
+    if counts["k1_forms"] != want_forms or counts["k2"] != want_k2:
+        fail(f"{label}: the path did not launch the kernels as expected")
+    arrays = {}
+    reso = cli.cfgmod.sample_args(["--tag", tag] + P11_VOX).reso
+    for j in range(len(res["paths"])):
+        d = os.path.join(out, f"{j:03d}")
+        arrays[j] = {}
+        for name in ("feat.npz", f"r{reso}_voxel.npz"):
+            with np.load(os.path.join(d, name)) as f:
+                arrays[j].update({f"{name}:{k}": f[k] for k in f.files})
+    return arrays
+
+
+def phase11a(tmp: str, tag: str, ref: str, want_forms: dict,
+             want_k2: int) -> dict:
+    """The reference-format tag: torch files, its transplanted weights
+    equal to the npz tag's, the loaders on the card, and the same
+    `--vox` samples."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.compat import torch_import as ti
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    ema = os.path.join("diffusion", "ema_0.9999_025000.pt")
+    pth = os.path.join("encoding", "ckpt_final.pth")
+    torch_files = {f: ti.is_torch_file(os.path.join(ref, f))
+                   for f in (ema, pth)}
+    print(f"11a: the reference-format tag's files are torch files: "
+          f"{torch_files}")
+    if not all(torch_files.values()) or ti.is_torch_file(
+            os.path.join(TAG, ema)):
+        fail("11a: is_torch_file")
+    args = cli.cfgmod.sample_args(["--tag", ref])
+    p11_same_trees("11a UNet, transplanted against the npz tag's",
+                   ti.unet_params_from_state_dict(
+                       ti.load_torch_file(os.path.join(ref, ema)),
+                       cli.cfgmod.unet_config_from_args(args)),
+                   ckpt.load_tree(os.path.join(TAG, ema))[0])
+    acfg = cli.cfgmod.ae_config_from_args(args)
+    tree, meta = ti.ae_bundle_to_tree(
+        ti.load_torch_file(os.path.join(ref, pth)), acfg)
+    want, want_meta = ckpt.load_tree(os.path.join(TAG, pth), "params")
+    p11_same_trees("11a AE, transplanted against the npz tag's", tree,
+                   want)
+    keys = ("aabb", "featmap_size", "Ka", "Kd", "Ks", "Ns", "threshold")
+    if any(meta[k] != want_meta[k] for k in keys):
+        fail(f"11a: the bundle's meta {meta} differs from {want_meta}")
+    # the loaders, on the card: the trainer's params with their packs
+    trainers = []
+    for t in (tag, ref):
+        tr = cli._make_trainer(cli.cfgmod.sample_args(["--tag", t]),
+                               torch.device(P11_DEVICE))
+        trainers.append(dict(ckpt.leaves_with_paths(tr.params)))
+    def eq(a, b):
+        if torch.is_tensor(a):
+            return torch.is_tensor(b) and torch.equal(a, b)
+        return a == b
+    same = (list(trainers[0]) == list(trainers[1]) and all(
+        eq(trainers[0][k], trainers[1][k]) for k in trainers[0]))
+    print(f"11a: AETrainer.load_ckpt on the card, the two tags' params and "
+          f"packs ({len(trainers[0])} leaves) equal: {same}")
+    if not same:
+        fail("11a: the loaded AE params differ")
+    got = {}
+    for label, t in (("npz", tag), ("reference", ref)):
+        got[label] = p11_vox(f"11a --vox DDIM-10 from the {label} tag", t,
+                             os.path.join(tmp, f"vox_{label}"), want_forms,
+                             want_k2)
+    worst = max(float(np.abs(got["npz"][j][k].astype(np.float64)
+                             - got["reference"][j][k]).max())
+                for j in got["npz"] for k in got["npz"][j])
+    print(f"11a: the two tags' feat.npz and voxel grids, largest "
+          f"difference {worst:.3e} (want 0)")
+    if worst != 0:
+        fail("11a: the reference-format tag samples differently")
+    return {"torch_files": torch_files, "max_diff": worst}
+
+
+def p11_post(base: str, body: dict, as_json: bool, timeout: int = 900):
+    """(status, response bytes, host seconds) of POST /generate."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    if as_json:
+        data, ctype = json.dumps(body).encode(), "application/json"
+    else:
+        data = urllib.parse.urlencode(body).encode()
+        ctype = "application/x-www-form-urlencoded"
+    req = urllib.request.Request(base + "/generate", data=data,
+                                 headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def p11_get(base: str, path: str) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(base + path, timeout=120) as r:
+        if r.status != 200:
+            fail(f"11b: GET {path} answered {r.status}")
+        return r.read()
+
+
+def check_glb(data: bytes, aabb, reso: int, n_faces: int, texreso: int,
+              tmp: str) -> dict:
+    """A GLB as the app writes it: glTF magic and version 2, one mesh of
+    at most n_faces faces, every vertex inside the AABB widened by a
+    voxel, and an embedded texreso x texreso PNG (`check_png`)."""
+    import struct
+    import numpy as np
+    magic, version, total = struct.unpack("<III", data[:12])
+    if magic != 0x46546C67 or version != 2 or total != len(data):
+        fail(f"GLB: magic {magic:#x}, version {version}, length {total} of "
+             f"{len(data)}")
+    jlen, jtype = struct.unpack("<II", data[12:20])
+    gltf = json.loads(data[20:20 + jlen])
+    blen, btype = struct.unpack("<II", data[20 + jlen:28 + jlen])
+    blob = data[28 + jlen:28 + jlen + blen]
+    if jtype != 0x4E4F534A or btype != 0x004E4942 or len(blob) != blen:
+        fail("GLB: chunk types or lengths")
+    if len(gltf["meshes"]) != 1 or len(gltf["meshes"][0]["primitives"]) != 1:
+        fail(f"GLB: {len(gltf['meshes'])} meshes")
+    prim = gltf["meshes"][0]["primitives"][0]
+    acc, views = gltf["accessors"], gltf["bufferViews"]
+
+    def view(i):
+        v = views[i]
+        return blob[v["byteOffset"]:v["byteOffset"] + v["byteLength"]]
+    pos_acc = acc[prim["attributes"]["POSITION"]]
+    pos = np.frombuffer(view(pos_acc["bufferView"]), np.float32).reshape(
+        -1, 3)
+    faces = acc[prim["indices"]]["count"] // 3
+    lo, hi = np.asarray(aabb[:3]), np.asarray(aabb[3:])
+    voxel = (hi.max() - lo.min()) / reso
+    inside = bool(((pos >= lo - voxel) & (pos <= hi + voxel)).all())
+    if len(pos) != pos_acc["count"] or not (0 < faces <= n_faces) \
+            or not inside:
+        fail(f"GLB: {faces} faces, {len(pos)} vertices, inside the AABB "
+             f"{inside}")
+    png = os.path.join(tmp, "glb_texture.png")
+    with open(png, "wb") as fh:
+        fh.write(view(gltf["images"][0]["bufferView"]))
+    check_png(png, texreso)
+    return {"faces": int(faces), "vertices": int(len(pos)),
+            "bytes": len(data)}
+
+
+def p11_stage_seconds(stages) -> dict:
+    """Per sample dir, the stage seconds summed as STAGES groups them."""
+    per = {}
+    for e in stages:
+        s = per.setdefault(e["dir"], {})
+        s[e["stage"]] = s.get(e["stage"], 0.0) + e["seconds"] + (
+            e.get("dispatch", 0.0) if e["stage"] == "sdf grid" else 0.0)
+    return {os.path.basename(d): {name: round(sum(s.get(k, 0.0)
+                                                  for k in keys), 3)
+                                  for name, keys in STAGES}
+            for d, s in sorted(per.items())}
+
+
+def phase11b(tmp: str, root: str, tag: str, ref: str, ucfg,
+             aabb, slabs: int) -> dict:
+    """The stdlib server on a thread, five kinds of request in turn, the
+    launches counted around each."""
+    import re
+    import threading
+    import traceback
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import app
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.models.unet import k1_launches_by_form
+    per_form = k1_launches_by_form(ucfg)
+    srv = app.build_http_server(root, "127.0.0.1", 0)
+    errors = []
+    srv.handle_error = lambda request, addr: errors.append(
+        traceback.format_exc())
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    # each request's stage log, by (tag, seed): the app keeps only paths
+    logs, log_lock, generate = {}, threading.Lock(), cli.generate
+
+    def recording(args):
+        paths, stages = generate(args)
+        with log_lock:
+            logs.setdefault((args.tag, args.seed), []).append(stages)
+        return paths, stages
+
+    cli.generate = recording
+    out = {"requests": {}, "launches": {}}
+
+    def served(label, body, as_json, n, steps, glbs=True):
+        key = (body["tag"], int(body["seed"]))
+        reset_counts()
+        status, resp, secs = p11_post(base, body, as_json)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if errors:
+            fail(f"11b {label}: the server thread raised:\n{errors[0]}")
+        if status != 200:
+            fail(f"11b {label}: answered {status}: {resp[:300]!r}")
+        stages = logs[key][-1]
+        texels = [e["texels"] for e in stages
+                  if e["stage"] == "texel dispatch"]
+        want_k1 = {f: m * steps * n for f, m in per_form.items()}
+        want_k2 = n * slabs + sum(texel_chunks(t) for t in texels)
+        print(f"11b {label}: {secs:.3f} s ({secs / n:.3f} s per sample); "
+              f"K1 launches by form {counts['k1_forms']} (want {want_k1}), "
+              f"K2 {counts['k2']} (want {want_k2}: {n} x {slabs} geo-grid "
+              f"slabs + texel chunks of {texels} texels)")
+        print(f"11b {label} stage seconds per sample: "
+              + json.dumps(p11_stage_seconds(stages)))
+        if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2 \
+                or len(texels) != n:
+            fail(f"11b {label}: the request did not launch the kernels as "
+                 "expected")
+        urls = (json.loads(resp)["glbs"] if as_json else
+                re.findall(r'href="(/glb/\d+)"', resp.decode()))
+        if glbs:
+            if urls != [f"/glb/{i}" for i in range(n)]:
+                fail(f"11b {label}: GLB urls {urls}")
+            checked = [check_glb(p11_get(base, u), aabb, P11_REQ["reso"],
+                                 P11_REQ["n_faces"], P11_REQ["texreso"], tmp)
+                       for u in urls]
+            print(f"11b {label}: GLBs {checked}")
+        out["requests"][label] = {"seconds": secs, "per_sample": secs / n,
+                                  "stages": p11_stage_seconds(stages)}
+        out["launches"][label] = {"k1": counts["k1"], "k2": counts["k2"]}
+
+    def feats(t, j=0):
+        with np.load(os.path.join(t, "app_results", f"{j:03d}",
+                                  "feat.npz")) as f:
+            return {k: f[k] for k in f.files}
+
+    def same(a, b):
+        return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                   for k in a)
+
+    ddim = dict(P11_REQ, use_ddim=True)
+    try:
+        # 1. the page lists both tags
+        page = p11_get(base, "/").decode()
+        listed = [t for t in (tag, ref) if f'value="{t}"' in page]
+        print(f"11b GET /: lists {len(listed)} of the 2 tags")
+        if len(listed) != 2:
+            fail("11b: the page does not list both tags")
+        # 2. JSON, DDIM-100, 2 samples
+        served("json ddim100 x2", dict(ddim, tag=tag, n_samples=2, seed=0),
+               True, 2, 100)
+        first = [feats(tag, j) for j in range(2)]
+        # 3. form-encoded, DDPM-1000 (the app's default), 1 sample
+        served("form ddpm1000 x1",
+               {**{k: str(v) for k, v in P11_REQ.items()}, "tag": tag,
+                "n_samples": "1", "seed": "0"}, False, 1, 1000)
+        # 4. step 2's request against the reference-format tag, 1 sample
+        served("json ddim100 x1, reference tag",
+               dict(ddim, tag=ref, n_samples=1, seed=0), True, 1, 100)
+        d4 = same(feats(ref), first[0])
+        print(f"11b: the reference tag's sample 0 against step 2's, largest "
+              f"difference {d4:.3e} (want 0)")
+        if d4 != 0:
+            fail("11b: the reference tag's request samples differently")
+        # 5. tags outside the root: 400, nothing written
+        # A tag is a path: the server would resolve '../x' against its own
+        # working directory, so look there as well as beside the root.
+        outside = os.path.join(tmp, "outside", "x")
+        where = (os.path.dirname(outside), os.path.join(root, "..", "x"),
+                 os.path.join(os.getcwd(), "..", "x"))
+        for bad in ("../x", outside):
+            before = [os.path.exists(w) for w in where]
+            reset_counts()
+            status, resp, _ = p11_post(base, dict(ddim, tag=bad,
+                                                  n_samples=1, seed=0), True)
+            counts = read_counts()
+            made = any(os.path.exists(w) and not b
+                       for w, b in zip(where, before))
+            print(f"11b tag {bad!r}: answered {status} (want 400), "
+                  f"launches {counts['k1']}, {counts['k2']}, directories "
+                  f"made: {made}")
+            if status != 400 or made or counts["k1"] or counts["k2"]:
+                fail(f"11b: the tag {bad!r} was not refused")
+        # 6. two requests in parallel threads (one on each tag: the app
+        # writes a tag's samples to <tag>/app_results/000..), each against
+        # the same request served alone
+        pair = {1: tag, 2: ref}
+        alone = {}
+        for seed, t in pair.items():
+            served(f"json ddim100 x1 seed {seed}, alone",
+                   dict(ddim, tag=t, n_samples=1, seed=seed), True, 1, 100,
+                   glbs=False)
+            alone[seed] = feats(t)
+        reset_counts()
+        results = {}
+
+        def post(seed):
+            results[seed] = p11_post(base, dict(ddim, tag=pair[seed],
+                                                n_samples=1, seed=seed),
+                                     True)
+
+        threads = [threading.Thread(target=post, args=(s,)) for s in pair]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        secs = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            fail("11b: a parallel request did not finish in 900 s")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if errors:
+            fail(f"11b parallel: the server thread raised:\n{errors[0]}")
+        texels = [e["texels"] for s, t in pair.items()
+                  for e in logs[(t, s)][-1] if e["stage"] == "texel dispatch"]
+        want_k1 = {f: m * 100 * 2 for f, m in per_form.items()}
+        want_k2 = 2 * slabs + sum(texel_chunks(t) for t in texels)
+        diffs = {s: same(feats(pair[s]), alone[s]) for s in pair}
+        print(f"11b parallel pair: {secs:.3f} s for both; answers "
+              f"{[results[s][0] for s in pair]}, each request "
+              f"{[round(results[s][2], 3) for s in pair]} s; K1 launches by "
+              f"form {counts['k1_forms']} (want {want_k1}), K2 "
+              f"{counts['k2']} (want {want_k2}); feat.npz against the same "
+              f"request alone, largest difference {diffs} (want 0)")
+        for s in pair:
+            print(f"11b parallel seed {s} stage seconds per sample: "
+                  + json.dumps(p11_stage_seconds(logs[(pair[s], s)][-1])))
+        if any(results[s][0] != 200 for s in pair) \
+                or counts["k1_forms"] != want_k1 \
+                or counts["k2"] != want_k2 or any(diffs.values()):
+            fail("11b: the parallel requests")
+        out["requests"]["parallel pair"] = {
+            "seconds": secs, "per_request": [results[s][2] for s in pair]}
+        out["launches"]["parallel pair"] = {"k1": counts["k1"],
+                                            "k2": counts["k2"]}
+    finally:
+        cli.generate = generate
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=60)
+    out["total"] = {k: sum(v[k] for v in out["launches"].values())
+                    for k in ("k1", "k2")}
+    return out
+
+
+def p11_l2(a, b) -> float:
+    return sum(float(((p - q) ** 2).sum()) for p, q in zip(a, b)) ** 0.5
+
+
+def p11_equal(label: str, a, b) -> None:
+    import torch
+    ok = all(torch.equal(p, q) for p, q in zip(a, b))
+    print(f"11c {label}: bit for bit equal: {ok}")
+    if not ok:
+        fail(f"11c {label}")
+
+
+def p11_finite(label: str, t) -> None:
+    import torch
+    if not all(bool(torch.isfinite(p).all()) for p in t):
+        fail(f"11c {label}: non-finite values")
+
+
+def p11_round_trip(model, tables, dcfg, x0):
+    """DDIM inversion of x0 to x_T over every step of `tables`, then
+    ddim_sample_loop back: (x_T, x_0)."""
+    import torch
+    from sin3dm_tpu_torch.diffusion import gaussian as tg
+    from sin3dm_tpu_torch.diffusion import sampling as ts
+    dev = x0.xy.device
+    x = x0
+    for t in range(tables["betas"].shape[0]):
+        x = tg.ddim_reverse_step(model, tables, dcfg, x,
+                                 torch.tensor([t], device=dev))
+    return x, ts.ddim_sample_loop(model, tables, dcfg, None, 1, x0.channels,
+                                  x0.sizes, noise=x, device=dev)
+
+
+def p11_vb_bound(tables, dcfg, x0, x_t, t: int, pred, out: float) -> float:
+    """The allowed card-host difference of vb_terms_bpd's output at t
+    (P11_VB_REL's comment), from the host's values, in fp64."""
+    import math
+    import torch
+    from sin3dm_tpu_torch.diffusion import gaussian as tg
+    tb = torch.tensor([t])
+    tab = {k: (v if k == "timestep_map" else v.double())
+           for k, v in tables.items()}
+    x0, x_t, pred = (v.map(lambda p: p.double()) for v in (x0, x_t, pred))
+    true_mean = tg.q_posterior_mean(tab, x0, x_t, tb)
+    true_logvar = tg.extract(tab, "posterior_log_variance_clipped", tb, x_t)
+    mean = tg.q_posterior_mean(tab, pred, x_t, tb)
+    logvar = tg.extract(tab, "fixed_large_log_variance", tb, x_t)
+    delta = float(tab["posterior_mean_coef1"][t]) * P11_FORWARD_TOL * max(
+        float(p.abs().max()) for p in pred)
+
+    def term(m):
+        if t == 0:
+            return tg.Triplane(*[
+                -tg.discretized_gaussian_log_likelihood(
+                    xs, means=mm, log_scales=0.5 * lv)
+                for xs, mm, lv in zip(x0, m, logvar)])
+        return tg.Triplane(*[tg.normal_kl(tm, tl, mm, lv) for tm, tl, mm, lv
+                             in zip(true_mean, true_logvar, m, logvar)])
+
+    base = term(mean)
+    moved = [term(mean.map(lambda p: p + s * delta)) for s in (1.0, -1.0)]
+    sens = tg.Triplane(*[torch.maximum((a - b).abs(), (c - b).abs())
+                         for a, c, b in zip(moved[0], moved[1], base)])
+    share = float(tg._tri_mean_flat(sens)[0]) / math.log(2.0)
+    return share + P11_VB_REL.get(t, P11_VB_REL_T) * abs(out)
+
+
+def phase11c(ucfg) -> dict:
+    """The diffusion library at full width on the committed EMA and the
+    tag's feat.npz: progressive loops, guidance, DDIM inversion and
+    vb_terms_bpd card against host, a bf16 round trip, calc_bpd_loop."""
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core.triplane import Triplane, load_triplane_npz
+    from sin3dm_tpu_torch.diffusion import gaussian as tg
+    from sin3dm_tpu_torch.diffusion import sampling as ts
+    from sin3dm_tpu_torch.models.unet import k1_launches_by_form
+    dev = torch.device(P11_DEVICE)
+    out = {}
+    args100 = cli.cfgmod.sample_args(["--tag", TAG, "--use_ddim", "true",
+                                      "--timestep_respacing", "ddim100"])
+    model, tables100, dcfg = cli.build_model(args100, dev)
+    tables_p = tg.tables_to_device(cli.cfgmod.schedule_from_args(
+        args100, respacing="100").tables_f32(), dev)
+    feat_path = cli.cfgmod.encoding_feat_path(TAG)
+    feat = load_triplane_npz(feat_path, dev).map(lambda p: p[None])
+    C, sizes = feat.channels, feat.sizes
+
+    def gens(seed):
+        return ts.sample_generators(seed, 0, 1, dev)
+
+    def zeros(x, t):
+        return x.map(torch.zeros_like)
+
+    def toward(x, t):
+        return (feat - x).map(lambda p: P11_GUIDE * p)
+
+    with torch.no_grad():
+        # progressive loops: 100 steps, a snapshot every 30 (and the last)
+        t0 = time.perf_counter()
+        snaps = ts.ddim_sample_loop_progressive(
+            model, tables100, dcfg, gens(3), 1, C, sizes, device=dev,
+            snapshot_every=30)
+        ddim = ts.ddim_sample_loop(model, tables100, dcfg, gens(3), 1, C,
+                                   sizes, device=dev)
+        psnaps = ts.p_sample_loop_progressive(
+            model, tables_p, dcfg, gens(4), 1, C, sizes, device=dev,
+            snapshot_every=30)
+        ddpm = ts.p_sample_loop(model, tables_p, dcfg, gens(4), 1, C, sizes,
+                                device=dev)
+        torch.cuda.synchronize()
+        print(f"11c progressive: DDIM-100 {snaps.xy.shape[0]} snapshots, "
+              f"DDPM over a 100-step respacing {psnaps.xy.shape[0]} (want 4 "
+              f"and 4), {time.perf_counter() - t0:.3f} s for the 4 chains")
+        if snaps.xy.shape[0] != 4 or psnaps.xy.shape[0] != 4:
+            fail("11c: snapshot counts")
+        p11_equal("DDIM progressive, last snapshot against ddim_sample_loop",
+                  snaps.map(lambda p: p[-1]), ddim)
+        p11_equal("DDPM progressive, last snapshot against p_sample_loop",
+                  psnaps.map(lambda p: p[-1]), ddpm)
+        # guidance
+        p11_equal("DDIM-100 with a zero cond_fn (condition_score) against "
+                  "the unguided chain",
+                  ts.ddim_sample_loop(model, tables100, dcfg, gens(3), 1, C,
+                                      sizes, device=dev, cond_fn=zeros),
+                  ddim)
+        p11_equal("DDPM over a 100-step respacing with a zero cond_fn "
+                  "(condition_mean) against the unguided chain",
+                  ts.p_sample_loop(model, tables_p, dcfg, gens(4), 1, C,
+                                   sizes, device=dev, cond_fn=zeros), ddpm)
+        guided = ts.ddim_sample_loop(model, tables100, dcfg, gens(3), 1, C,
+                                     sizes, device=dev, cond_fn=toward)
+        l2 = {"unguided": p11_l2(ddim, feat), "guided": p11_l2(guided, feat)}
+        print(f"11c guidance {P11_GUIDE} * (feat - x) on DDIM-100: L2 to the "
+              f"tag's feat.npz {l2['guided']:.4f}, unguided "
+              f"{l2['unguided']:.4f} (want it nearer)")
+        for name, t in (("snapshots", snaps), ("psnaps", psnaps),
+                        ("guided", guided)):
+            p11_finite(name, t)
+        if not l2["guided"] < l2["unguided"]:
+            fail("11c: guidance did not bring the sample nearer feat.npz")
+        out["guidance_l2"] = l2
+
+        # DDIM inversion and the bpd terms, card against host, fp32
+        old = os.environ.get("SIN3DM_SAMPLE_DTYPE")
+        os.environ["SIN3DM_SAMPLE_DTYPE"] = "train"
+        try:
+            rt, vb = {}, {}
+            rng = np.random.default_rng(11)
+            noise_np = [rng.standard_normal(p.shape).astype(np.float32)
+                        for p in feat]
+            for side, d in (("card", P11_DEVICE), ("host", "cpu")):
+                d = torch.device(d)
+                t0 = time.perf_counter()
+                a10 = cli.cfgmod.sample_args([
+                    "--tag", TAG, "--use_ddim", "true",
+                    "--timestep_respacing", "ddim10"])
+                m10, tab10, _ = cli.build_model(a10, d)
+                x0 = feat.to(d)
+                xT, back = p11_round_trip(m10, tab10, dcfg, x0)
+                m1k, tab1k, _ = cli.build_model(
+                    cli.cfgmod.sample_args(["--tag", TAG]), d)
+                noise = Triplane(*[torch.from_numpy(a).to(d)
+                                   for a in noise_np])
+                vb[side] = {}
+                for t in (0, 1, 500, 999):
+                    tb = torch.tensor([t], device=d)
+                    x_t = tg.q_sample(tab1k, x0, tb, noise)
+                    r = tg.vb_terms_bpd(m1k, tab1k, dcfg, x0, x_t, tb)
+                    vb[side][t] = (float(r["output"][0]),
+                                     r["pred_xstart"].to("cpu"),
+                                     x_t.to("cpu"))
+                rt[side] = (xT.to("cpu"), back.to("cpu"))
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                print(f"11c fp32 round trip and vb terms on the {side} "
+                      f"({d.type}): "
+                      f"{time.perf_counter() - t0:.3f} s")
+        finally:
+            if old is None:
+                os.environ.pop("SIN3DM_SAMPLE_DTYPE", None)
+            else:
+                os.environ["SIN3DM_SAMPLE_DTYPE"] = old
+        worst_rt = {}
+        for i, name in enumerate(("x_T", "x_0")):
+            card, host = rt["card"][i], rt["host"][i]
+            p11_finite(name, card)
+            shares = [float((c - h).abs().max() / h.abs().max())
+                      for c, h in zip(card, host)]
+            worst_rt[name] = max(shares)
+            print(f"11c DDIM-10 round trip {name}, card against host: "
+                  + ", ".join(f"{s:.3e}" for s in shares)
+                  + f" of each plane's largest (tol {P11_ROUND_TRIP_TOL})")
+        err = [float((b - f).abs().max()) for b, f in
+               zip(rt["card"][1], feat.to("cpu"))]
+        print(f"11c DDIM-10 round trip against feat.npz (card, fp32): max "
+              f"|x_0 - feat| per plane {[round(e, 4) for e in err]}")
+        if max(worst_rt.values()) > P11_ROUND_TRIP_TOL:
+            fail("11c: the round trip's card and host differ")
+        out["round_trip_card_vs_host"] = worst_rt
+        out["round_trip_fp32_err"] = err
+        tables_host = tg.tables_to_device(cli.cfgmod.schedule_from_args(
+            cli.cfgmod.sample_args(["--tag", TAG]),
+            respacing="").tables_f32(), "cpu")
+        out["vb"] = {}
+        for t in (0, 1, 500, 999):
+            oc, pc, _ = vb["card"][t]
+            oh, ph, x_t = vb["host"][t]
+            pred = max(float((c - h).abs().max() / h.abs().max())
+                       for c, h in zip(pc, ph))
+            b = p11_vb_bound(tables_host, dcfg, feat.to("cpu"), x_t, t, ph,
+                             oh)
+            ok = (pred <= P11_FORWARD_TOL and abs(oc - oh) <= b
+                  and np.isfinite(oc))
+            print(f"11c vb_terms_bpd t={t}: card {oc:.6f}, host {oh:.6f} "
+                  f"bits, |diff| {abs(oc - oh):.3e} (bound {b:.3e}); "
+                  f"pred_xstart {pred:.3e} of its largest (tol "
+                  f"{P11_FORWARD_TOL}) ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                fail(f"11c: vb_terms_bpd at t={t}")
+            out["vb"][t] = {"card": oc, "host": oh, "diff": abs(oc - oh),
+                            "bound": b, "pred_xstart": pred}
+
+        # the sampler's dtype: a DDIM-100 round trip, then the bpd loop
+        t0 = time.perf_counter()
+        _, back = p11_round_trip(model, tables100, dcfg, feat)
+        torch.cuda.synchronize()
+        p11_finite("bf16 round trip", back)
+        err = [float((b - f).abs().max()) for b, f in zip(back, feat)]
+        rms = [float(((b - f) ** 2).mean().sqrt()) for b, f in
+               zip(back, feat)]
+        print(f"11c DDIM-100 round trip in the sampler's dtype (bf16): "
+              f"{time.perf_counter() - t0:.3f} s; max |x_0 - feat| per plane "
+              f"{[round(e, 4) for e in err]}, rms "
+              f"{[round(e, 4) for e in rms]}")
+        out["round_trip_bf16"] = {"max": err, "rms": rms}
+        m1k, tab1k, _ = cli.build_model(
+            cli.cfgmod.sample_args(["--tag", TAG]), dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        bpd = tg.calc_bpd_loop(m1k, tab1k, dcfg, feat, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    want = {f: m * 1000 for f, m in k1_launches_by_form(ucfg).items()}
+    vals = {k: bpd[k].cpu().numpy() for k in bpd}
+    print(f"11c calc_bpd_loop (T 1000, batch 1, bf16): total_bpd "
+          f"{float(vals['total_bpd'][0]):.6f}, prior_bpd "
+          f"{float(vals['prior_bpd'][0]):.3e}, {secs:.3f} s; vb, xstart_mse, "
+          f"mse {vals['vb'].shape}; K1 launches by form "
+          f"{counts['k1_forms']} (want {want}), K2 {counts['k2']} (want 0)")
+    if counts["k1_forms"] != want or counts["k2"] != 0:
+        fail("11c: calc_bpd_loop did not launch K1 as expected")
+    if any(not np.isfinite(v).all() for v in vals.values()) or \
+            vals["vb"].shape != (1, 1000):
+        fail("11c: calc_bpd_loop's values")
+    out["bpd_loop"] = {"total_bpd": float(vals["total_bpd"][0]),
+                       "prior_bpd": float(vals["prior_bpd"][0]),
+                       "seconds": secs, "launches": counts["k1"]}
+    return out
+
+
+def phase11(ucfg, want_forms: dict, want_k2: int, aabb,
+            slabs: int) -> dict:
+    tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_serve_")
+    try:
+        root, tag, ref = p11_tags(tmp)
+        with configuration("default"):
+            a = phase11a(tmp, tag, ref, want_forms, want_k2)
+            b = phase11b(tmp, root, tag, ref, ucfg, aabb, slabs)
+            c = phase11c(ucfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"reference_tag": a, "serving": b, "library": c}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -2760,6 +3489,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     B = 2
     k1f = check_k1_forms(B)
+    # serving, the app's DDPM chain and the bpd loop run batch-1 chains
+    k1_b1 = check_k1_forms(1, timed=False)
     k1 = k1f["default"]
     k1p = {f: k1f[f] for f in ("act", "act+stats", "act+skip+stats")}
     tree, meta = ckpt.load_tree(os.path.join(
@@ -2888,6 +3619,13 @@ def main() -> int:
     print("data preparation: " + json.dumps(prep, default=float))
     print("evaluation: " + json.dumps(evals, default=float))
 
+    # 11. serving and the diffusion library: a reference-format tag, the
+    # app's server, the library's remainder at full width
+    serve = phase11(ucfg, want(10), want_k2, aabb, slabs)
+    print("serving and the diffusion library: " + json.dumps(
+        serve, default=float))
+    served = serve["serving"]
+
     # 7. results
     def row(name, source, replaces, launches, r, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2926,7 +3664,12 @@ def main() -> int:
         row("conv3x3_rollout", src, "sin3dm_tpu/ops/fused_conv.py:177",
             main_counts["k1"], k1, **{k: k1[k] for k in lib_keys},
             launches_train_step=trained["launches_train_step"]["k1"],
-            launches_sample_after_training=counts6["k1"]),
+            launches_sample_after_training=counts6["k1"],
+            launches_serving=served["total"]["k1"],
+            launches_serving_by_request={
+                k: v["k1"] for k, v in served["launches"].items()},
+            launches_bpd_loop=serve["library"]["bpd_loop"]["launches"],
+            max_abs_err_batch1=k1_b1["default"]["max_abs_err"]),
         row("conv3x3_rollout act/skip/emit_stats (K1')", src,
             "sin3dm_tpu/ops/fused_conv.py:177",
             sum(k1p_launches[f] for f in chained), k1p_all,
@@ -2938,6 +3681,7 @@ def main() -> int:
                            "library_benchmark_ms", "library_device_ms",
                            "bound_ms", "bound_by", "max_abs_err")}}
                    for f in k1p},
+            max_abs_err_batch1=max(k1_b1[f]["max_abs_err"] for f in k1p),
             ratios=ratios, forward_parity_max_abs=parity_err,
             inpaint_launches=inpaint_counts["k1_forms"]),
         row("skip_mlp", "sin3dm_tpu_torch/csrc/fused_mlp.cu",
@@ -2954,7 +3698,10 @@ def main() -> int:
             launches_ae_train_step=ae8["step"]["launches"]["k2"],
             mesh_shapes=k2_mesh,
             launches_train_step=trained["launches_train_step"]["k2"],
-            launches_sample_after_training=counts6["k2"]),
+            launches_sample_after_training=counts6["k2"],
+            launches_serving=served["total"]["k2"],
+            launches_serving_by_request={
+                k: v["k2"] for k, v in served["launches"].items()}),
         row("skip_mlp geo head [2^20, 64] -> 1 (evaluate's surface chunk)",
             "sin3dm_tpu_torch/csrc/fused_mlp.cu",
             "sin3dm_tpu/ops/fused_mlp.py:79",
@@ -2980,7 +3727,9 @@ def main() -> int:
           "('launches_ae_train': evaluate's and the rec mesh's), the AE "
           "train step none; the row of K2's evaluate surface chunk "
           "counts the launches of that shape in 8c's CLI run, by the "
-          "wrapper's count by shape")
+          "wrapper's count by shape; 'launches_serving' sums phase 11b's "
+          "requests (by request under 'launches_serving_by_request'), "
+          "'launches_bpd_loop' is 11c's calc_bpd_loop (T 1000)")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

@@ -72,7 +72,9 @@ def _unet_config(args):
 def build_model(args, device: torch.device):
     """(model, tables, diffusion config): the EMA UNet as a
     `(x_t, t_model) -> Triplane` function on `device`, and the (respaced)
-    schedule's tables there."""
+    schedule's tables there.  The EMA file is the npz container or a
+    reference torch state dict (`compat/torch_import.py`)."""
+    from ..compat import torch_import as ti
     from ..compat.from_jax import unet_params_from_jax
     from ..diffusion.gaussian import tables_to_device
     from ..models.unet import unet_apply
@@ -81,7 +83,13 @@ def build_model(args, device: torch.device):
     ucfg = _unet_config(args)
     model_path = cfgmod.diffusion_model_path(args.tag, args.ema_rate,
                                              args.diff_n_iters)
-    tree, _ = ckpt.load_tree(model_path)
+    if ti.is_torch_file(model_path):
+        # a reference torch EMA file: --tag may name a published tag
+        print(f"weight-transplanting reference torch ckpt: {model_path}")
+        tree = ti.unet_params_from_state_dict(
+            ti.load_torch_file(model_path), ucfg)
+    else:
+        tree, _ = ckpt.load_tree(model_path)
     params = pack_params(unet_params_from_jax(tree, device))
 
     respacing = args.timestep_respacing if args.use_ddim else ""

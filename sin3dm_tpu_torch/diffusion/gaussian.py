@@ -1,6 +1,7 @@
 """DDPM/DDIM math over Triplanes (counterpart of
-`sin3dm_tpu/diffusion/gaussian.py`): the sampling steps and the training
-losses.
+`sin3dm_tpu/diffusion/gaussian.py`): the sampling steps with optional
+guidance (`cond_fn`), DDIM inversion, the training losses and the
+variational bound in bits per dim.
 
 Stateless functions over a dict of float32 coefficient tables on the
 device (`tables_to_device`).  The diffusion state is the Triplane itself;
@@ -201,13 +202,48 @@ def _nonzero_t(t: torch.Tensor, x: Triplane) -> Triplane:
     return Triplane(_bcast(nz, x.xy), _bcast(nz, x.xz), _bcast(nz, x.yz))
 
 
+# CondFn: (x_t, t_model) -> Triplane, the gradient of log p(y | x_t)
+CondFn = Callable[[Triplane, torch.Tensor], Triplane]
+
+
+def condition_mean(cond_fn: CondFn, tables, cfg: DiffusionConfig,
+                   out: PMeanVar, x: Triplane, t: torch.Tensor) -> Triplane:
+    """The posterior mean shifted by variance * grad log p(y | x)
+    (Sohl-Dickstein et al.'s conditioning)."""
+    grad = cond_fn(x, model_timesteps(tables, cfg, t))
+    return out.mean + out.log_variance.map(torch.exp) * grad
+
+
+def condition_score(cond_fn: CondFn, tables, cfg: DiffusionConfig,
+                    out: PMeanVar, x: Triplane,
+                    t: torch.Tensor) -> PMeanVar:
+    """Score conditioning (Song et al.): eps shifted by
+    -sqrt(1 - alpha_bar) * grad, then pred_xstart and the posterior mean
+    from it.  JAX re-derives pred_xstart from the shifted eps; here the
+    same value comes as pred_xstart + sqrt(1/alpha_bar - 1)
+    sqrt(1 - alpha_bar) grad, which adds exactly 0 for a zero grad."""
+    grad = cond_fn(x, model_timesteps(tables, cfg, t))
+    b = extract(tables, "sqrt_recipm1_alphas_cumprod", t, x)
+    ab = extract(tables, "alphas_cumprod", t, x)
+    coef = Triplane(*[bb * torch.sqrt(1 - a) for bb, a in zip(b, ab)])
+    pred_xstart = out.pred_xstart + coef * grad
+    mean = q_posterior_mean(tables, pred_xstart, x, t)
+    return PMeanVar(mean=mean, log_variance=out.log_variance,
+                    pred_xstart=pred_xstart)
+
+
 def p_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
                   x: Triplane, t: torch.Tensor, noise: Triplane,
-                  clip_denoised: bool = True) -> Triplane:
-    """One ancestral sampling step with pre-drawn `noise`."""
+                  clip_denoised: bool = True,
+                  cond_fn: Optional[CondFn] = None) -> Triplane:
+    """One ancestral sampling step with pre-drawn `noise`; `cond_fn`
+    guides it through `condition_mean`."""
     out = p_mean_variance(model, tables, cfg, x, t, clip_denoised)
+    mean = out.mean
+    if cond_fn is not None:
+        mean = condition_mean(cond_fn, tables, cfg, out, x, t)
     sigma = out.log_variance.map(lambda lv: torch.exp(0.5 * lv))
-    return out.mean + _nonzero_t(t, x) * sigma * noise
+    return mean + _nonzero_t(t, x) * sigma * noise
 
 
 def ddim_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
@@ -216,15 +252,19 @@ def ddim_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
                      clip_denoised: bool = True,
                      y0: Optional[Triplane] = None,
                      mask: Optional[Triplane] = None,
-                     is_mask_t0: bool = False) -> Triplane:
+                     is_mask_t0: bool = False,
+                     cond_fn: Optional[CondFn] = None) -> Triplane:
     """One DDIM step.  `noise` may be None only for eta == 0, where the
-    noise term is exactly zero.
+    noise term is exactly zero.  `cond_fn` guides it through
+    `condition_score`.
 
     With `y0` and `mask` (masked generation): pred_xstart becomes
     `mask * y0 + (1 - mask) * pred_xstart` before eps is re-derived, so
     mask = 1 keeps y0 -- at every step with `is_mask_t0`, else at every
     step but the last (t = 0)."""
     out = p_mean_variance(model, tables, cfg, x, t, clip_denoised)
+    if cond_fn is not None:
+        out = condition_score(cond_fn, tables, cfg, out, x, t)
     pred_xstart = out.pred_xstart
     if y0 is not None and mask is not None:
         blended = mask * y0 + mask.map(lambda m: 1.0 - m) * pred_xstart
@@ -251,6 +291,18 @@ def ddim_sample_step(model: ModelFn, tables, cfg: DiffusionConfig,
     if noise is None:
         raise ValueError("ddim_sample_step with eta != 0 needs noise")
     return mean_pred + _nonzero_t(t, x) * Triplane(*sigmas) * noise
+
+
+def ddim_reverse_step(model: ModelFn, tables, cfg: DiffusionConfig,
+                      x: Triplane, t: torch.Tensor,
+                      clip_denoised: bool = True) -> Triplane:
+    """One deterministic DDIM reverse-ODE step x_t -> x_{t+1} (DDIM
+    inversion)."""
+    out = p_mean_variance(model, tables, cfg, x, t, clip_denoised)
+    eps = predict_eps_from_xstart(tables, x, t, out.pred_xstart)
+    ab_next = extract(tables, "alphas_cumprod_next", t, x)
+    return Triplane(*[xs * torch.sqrt(an) + torch.sqrt(1 - an) * ep
+                      for xs, ep, an in zip(out.pred_xstart, eps, ab_next)])
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +402,45 @@ def prior_bpd(tables, x_start: Triplane) -> torch.Tensor:
                               torch.zeros_like(m))
                     for m, lv in zip(mean, logvar)])
     return _tri_mean_flat(kl) / math.log(2.0)
+
+
+@torch.no_grad()
+def calc_bpd_loop(model: ModelFn, tables, cfg: DiffusionConfig,
+                  x_start: Triplane, seed: Optional[int] = None,
+                  clip_denoised: bool = True,
+                  noise: Optional[Callable[[int], Triplane]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The variational lower bound in bits per dim over every timestep,
+    t = T-1 down to 0.  Each t's noise is `noise(t)` where given, else one
+    draw of x_start's shapes from `step_generator(seed, t)` on x_start's
+    device (JAX draws it from `fold_in(key, t)`).  Returns total_bpd
+    `[B]`, prior_bpd `[B]`, and vb, xstart_mse, mse `[B, T]`, column i
+    for t = T-1-i."""
+    from ..core.rng import step_generator
+    from ..core.triplane import randn_like
+    if noise is None and seed is None:
+        raise ValueError("calc_bpd_loop needs a seed or noise")
+    T = tables["betas"].shape[0]
+    B = x_start.xy.shape[0]
+    device = x_start.xy.device
+    vb, xstart_mse, mse = [], [], []
+    for t_scalar in range(T - 1, -1, -1):
+        t = torch.full((B,), t_scalar, dtype=torch.int64, device=device)
+        nz = (noise(t_scalar) if noise is not None else
+              randn_like(step_generator(seed, t_scalar, device), x_start))
+        x_t = q_sample(tables, x_start, t, nz)
+        out = vb_terms_bpd(model, tables, cfg, x_start, x_t, t,
+                           clip_denoised)
+        vb.append(out["output"])
+        xstart_mse.append(_tri_mean_flat(
+            (out["pred_xstart"] - x_start).map(lambda p: p ** 2)))
+        eps = predict_eps_from_xstart(tables, x_t, t, out["pred_xstart"])
+        mse.append(_tri_mean_flat((eps - nz).map(lambda p: p ** 2)))
+    vb_t = torch.stack(vb, dim=1)
+    pb = prior_bpd(tables, x_start)
+    return {"total_bpd": vb_t.sum(dim=1) + pb, "prior_bpd": pb,
+            "vb": vb_t, "xstart_mse": torch.stack(xstart_mse, dim=1),
+            "mse": torch.stack(mse, dim=1)}
 
 
 def normal_kl(mean1, logvar1, mean2, logvar2):

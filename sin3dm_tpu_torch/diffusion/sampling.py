@@ -9,6 +9,11 @@ one `torch.Generator` on the device, seeded from (seed, j)
 drawn from that generator alone, so a sample is the same whatever the
 batch it was drawn in.  The bits differ from JAX's threefry/rbg streams;
 tests hand both sides the same numpy noise through `noise=`.
+
+The progressive loops keep the state after every `snapshot_every` steps
+(and after the last), stacked `[S, B, ...]`; their last snapshot is the
+plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
+`gaussian.condition_mean` / `condition_score`).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
-from .gaussian import DiffusionConfig, ModelFn, ddim_sample_step, \
+from .gaussian import CondFn, DiffusionConfig, ModelFn, ddim_sample_step, \
     p_sample_step
 
 
@@ -59,20 +64,48 @@ def _init(gens, batch, channels, sizes, noise, device, step_noise: bool):
     return randn_per_sample(gens, channels, sizes, device)
 
 
+def _p_stepper(model, tables, cfg, gens, channels, sizes, clip_denoised,
+               device, cond_fn=None):
+    """step(x, t) of the ancestral chain: noise from `gens`, one draw per
+    step."""
+    def step(x, t):
+        tb = torch.full((len(gens),), t, dtype=torch.int64, device=device)
+        step_noise = randn_per_sample(gens, channels, sizes, device)
+        return p_sample_step(model, tables, cfg, x, tb, step_noise,
+                             clip_denoised=clip_denoised, cond_fn=cond_fn)
+    return step
+
+
+def _ddim_stepper(model, tables, cfg, gens, batch, channels, sizes, eta,
+                  clip_denoised, device, y0, mask, is_mask_t0,
+                  cond_fn=None):
+    """step(x, t) of the DDIM chain; with eta == 0 it draws nothing."""
+    def step(x, t):
+        tb = torch.full((batch,), t, dtype=torch.int64, device=device)
+        step_noise = (randn_per_sample(gens, channels, sizes, device)
+                      if eta != 0.0 else None)
+        return ddim_sample_step(model, tables, cfg, x, tb, step_noise,
+                                eta=eta, clip_denoised=clip_denoised, y0=y0,
+                                mask=mask, is_mask_t0=is_mask_t0,
+                                cond_fn=cond_fn)
+    return step
+
+
 def p_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                   gens: Optional[Sequence[torch.Generator]], batch: int,
                   channels: int, sizes: Tuple[int, int, int],
                   noise: Optional[Triplane] = None,
-                  clip_denoised: bool = True, device="cuda") -> Triplane:
+                  clip_denoised: bool = True, device="cuda",
+                  cond_fn: Optional[CondFn] = None) -> Triplane:
     """Ancestral DDPM sampling.  `noise` replaces the initial draw; the
-    per-step noise always comes from `gens`."""
+    per-step noise always comes from `gens`.  `cond_fn` guides every
+    step (`condition_mean`)."""
     T = tables["betas"].shape[0]
     x = _init(gens, batch, channels, sizes, noise, device, step_noise=True)
+    step = _p_stepper(model, tables, cfg, gens, channels, sizes,
+                      clip_denoised, device, cond_fn)
     for t in range(T - 1, -1, -1):
-        tb = torch.full((batch,), t, dtype=torch.int64, device=device)
-        step_noise = randn_per_sample(gens, channels, sizes, device)
-        x = p_sample_step(model, tables, cfg, x, tb, step_noise,
-                          clip_denoised=clip_denoised)
+        x = step(x, t)
     return x
 
 
@@ -83,21 +116,79 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                      clip_denoised: bool = True, device="cuda",
                      y0: Optional[Triplane] = None,
                      mask: Optional[Triplane] = None,
-                     is_mask_t0: bool = False) -> Triplane:
+                     is_mask_t0: bool = False,
+                     cond_fn: Optional[CondFn] = None) -> Triplane:
     """DDIM sampling over the (respaced) schedule, optionally masked (see
-    `ddim_sample_step`).  With eta == 0 the chain depends only on the
-    initial noise and draws nothing more."""
+    `ddim_sample_step`) and guided (`cond_fn`, `condition_score`).  With
+    eta == 0 the chain depends only on the initial noise and draws
+    nothing more."""
     T = tables["betas"].shape[0]
     x = _init(gens, batch, channels, sizes, noise, device,
               step_noise=eta != 0.0)
+    step = _ddim_stepper(model, tables, cfg, gens, batch, channels, sizes,
+                         eta, clip_denoised, device, y0, mask, is_mask_t0,
+                         cond_fn)
     for t in range(T - 1, -1, -1):
-        tb = torch.full((batch,), t, dtype=torch.int64, device=device)
-        step_noise = (randn_per_sample(gens, channels, sizes, device)
-                      if eta != 0.0 else None)
-        x = ddim_sample_step(model, tables, cfg, x, tb, step_noise,
-                             eta=eta, clip_denoised=clip_denoised, y0=y0,
-                             mask=mask, is_mask_t0=is_mask_t0)
+        x = step(x, t)
     return x
+
+
+def _progressive(step, x: Triplane, T: int,
+                 snapshot_every: int) -> Triplane:
+    """Run `step` for t = T-1 down to 0, keeping the state after every
+    `snapshot_every` steps and after the last: a Triplane of planes
+    stacked `[S, B, ...]`, S = ceil(T / snapshot_every).  Only the
+    snapshots are kept."""
+    k = max(1, min(int(snapshot_every), T))
+    snaps = []
+    for i, t in enumerate(range(T - 1, -1, -1)):
+        x = step(x, t)
+        if (i + 1) % k == 0 or i + 1 == T:
+            snaps.append(x)
+    return Triplane(*[torch.stack(planes, dim=0) for planes in zip(*snaps)])
+
+
+def p_sample_loop_progressive(model: ModelFn, tables, cfg: DiffusionConfig,
+                              gens: Optional[Sequence[torch.Generator]],
+                              batch: int, channels: int,
+                              sizes: Tuple[int, int, int],
+                              noise: Optional[Triplane] = None,
+                              clip_denoised: bool = True, device="cuda",
+                              snapshot_every: int = 1,
+                              cond_fn: Optional[CondFn] = None) -> Triplane:
+    """`p_sample_loop` with snapshots (see `_progressive`): the last
+    equals `p_sample_loop`'s result bit for bit, given the same
+    generators and noise."""
+    T = tables["betas"].shape[0]
+    x = _init(gens, batch, channels, sizes, noise, device, step_noise=True)
+    step = _p_stepper(model, tables, cfg, gens, channels, sizes,
+                      clip_denoised, device, cond_fn)
+    return _progressive(step, x, T, snapshot_every)
+
+
+def ddim_sample_loop_progressive(model: ModelFn, tables,
+                                 cfg: DiffusionConfig,
+                                 gens: Optional[Sequence[torch.Generator]],
+                                 batch: int, channels: int,
+                                 sizes: Tuple[int, int, int],
+                                 noise: Optional[Triplane] = None,
+                                 eta: float = 0.0,
+                                 clip_denoised: bool = True, device="cuda",
+                                 y0: Optional[Triplane] = None,
+                                 mask: Optional[Triplane] = None,
+                                 is_mask_t0: bool = False,
+                                 snapshot_every: int = 1,
+                                 cond_fn: Optional[CondFn] = None
+                                 ) -> Triplane:
+    """`ddim_sample_loop` with snapshots; the same contract as
+    `p_sample_loop_progressive`."""
+    T = tables["betas"].shape[0]
+    x = _init(gens, batch, channels, sizes, noise, device,
+              step_noise=eta != 0.0)
+    step = _ddim_stepper(model, tables, cfg, gens, batch, channels, sizes,
+                         eta, clip_denoised, device, y0, mask, is_mask_t0,
+                         cond_fn)
+    return _progressive(step, x, T, snapshot_every)
 
 
 def region_keep_masks(sizes: Tuple[int, int, int],

@@ -34,13 +34,15 @@ pass them packed once (`packed=`; `ops.pack_params` packs a parameter
 tree where the model is built), else the wrapper packs them per call.
 
 `conv3x3_rollout.launches` counts every kernel launch of either wrapper
-and `conv3x3_rollout.form_launches` counts them by form (`form_name`).
+and `conv3x3_rollout.form_launches` counts them by form (`form_name`),
+under one lock: launches from concurrent threads each count once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -240,11 +242,17 @@ def _operands(x, w, b, col3, row3, act, skip):
     return b, act_a, act_b, skip
 
 
+# concurrent requests launch from several threads: one lock keeps each
+# count's read-modify-write whole
+_count_lock = threading.Lock()
+
+
 def _count(act, skip, emit_stats) -> None:
-    conv3x3_rollout.launches += 1
     form = form_name(act is not None, skip is not None, emit_stats)
-    conv3x3_rollout.form_launches[form] = \
-        conv3x3_rollout.form_launches.get(form, 0) + 1
+    with _count_lock:
+        conv3x3_rollout.launches += 1
+        conv3x3_rollout.form_launches[form] = \
+            conv3x3_rollout.form_launches.get(form, 0) + 1
 
 
 def _launch_f32(x, w, b, col3, row3, act, skip, emit_stats):

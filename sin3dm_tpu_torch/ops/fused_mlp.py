@@ -14,12 +14,14 @@ packed once (`ops.pack_params`, where the model is built), else packed
 per call.
 
 `skip_mlp.launches` counts every kernel launch, and
-`skip_mlp.shape_launches` counts them by shape, `(rows, cin, cout)`.
+`skip_mlp.shape_launches` counts them by shape, `(rows, cin, cout)`,
+under one lock: launches from concurrent threads each count once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -299,10 +301,20 @@ def skip_mlp(params: Dict, x: torch.Tensor,
         _launch_bf16(params, x, out)
     else:
         _launch_f32(params, x, out)
-    skip_mlp.launches += 1
-    shape = (x.shape[0], cin, cout)
-    skip_mlp.shape_launches[shape] = skip_mlp.shape_launches.get(shape, 0) + 1
+    _count((x.shape[0], cin, cout))
     return out
+
+
+# concurrent requests launch from several threads: one lock keeps each
+# count's read-modify-write whole
+_count_lock = threading.Lock()
+
+
+def _count(shape) -> None:
+    with _count_lock:
+        skip_mlp.launches += 1
+        skip_mlp.shape_launches[shape] = \
+            skip_mlp.shape_launches.get(shape, 0) + 1
 
 
 skip_mlp.launches = 0

@@ -555,9 +555,18 @@ class AETrainer:
 
     def load_ckpt(self, name: str) -> None:
         """Load params and meta from `ckpt_{name}.pth`: the `params/`
-        subtree of a combined params/opt_state/step checkpoint, or a
-        params-only one."""
+        subtree of a combined params/opt_state/step checkpoint, a
+        params-only one, or a reference torch bundle, whose weights are
+        transplanted (`compat/torch_import.py`; its meta has no
+        `grid_shape`)."""
+        from ..compat import torch_import as ti
         path = self._ckpt_path(name)
+        if ti.is_torch_file(path):
+            print(f"weight-transplanting reference torch ckpt: {path}")
+            tree, self.meta = ti.ae_bundle_to_tree(ti.load_torch_file(path),
+                                                   self.acfg)
+            self.set_params(ae_params_from_jax(tree, self.device))
+            return
         prefix = ("params" if any(p.startswith("params/")
                                   for p in ckpt.peek_paths(path)) else "")
         tree, meta = ckpt.load_tree(path, prefix)
@@ -674,21 +683,27 @@ class AETrainer:
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
-        """Sign accuracy and TSDF errors of the decoded training grid (the
-        grid is the AABB's voxel centres, so it decodes densely,
-        `decode_grid_dense`, reordered by `grid_perm` onto the shuffled
-        ground truth) and, with texture, the L1 error of the on-surface
-        colours."""
-        assert self.grid_perm is not None, "evaluate() needs load_data()"
+        """Sign accuracy and TSDF errors of the decoded training grid and,
+        with texture, the L1 error of the on-surface colours.  Where the
+        meta has the grid's shape (the grid is the AABB's voxel centres)
+        it decodes densely, `decode_grid_dense`, reordered by `grid_perm`
+        onto the shuffled ground truth; without it (a reference bundle's
+        meta) point by point over the shuffled grid points."""
         feat = self.encode()
         thr = self.meta["threshold"]
-        with self._device_lock:
-            gp, tp = self._planes(feat)
-            pred = ae.decode_grid_dense(
-                self.params, self.acfg, gp, tp,
-                tuple(self.meta["grid_shape"]),
-                geo_only=True).cpu().numpy().reshape(-1, 1)
-        pred = pred[self.grid_perm]
+        grid_shape = self.meta.get("grid_shape")
+        if grid_shape is not None:
+            assert self.grid_perm is not None, \
+                "evaluate() needs load_data()"
+            with self._device_lock:
+                gp, tp = self._planes(feat)
+                pred = ae.decode_grid_dense(
+                    self.params, self.acfg, gp, tp, tuple(grid_shape),
+                    geo_only=True).cpu().numpy().reshape(-1, 1)
+            pred = pred[self.grid_perm]
+        else:
+            pred = self.decode_batch(
+                feat, self.data.pts_grid.cpu().numpy())[:, :1]
         gt = self.data.sdf_grid.cpu().numpy()
         if self.tcfg.sdf_renorm:
             pred, gt = pred * thr, gt * thr

@@ -116,8 +116,8 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
 
 
 # the modules of the stats-chain, fused-act, --inpaint, mesh, training,
-# data-preparation and evaluation paths, named so that the walk cannot
-# miss them; none may bring in jax, the JAX package, cv2 or PIL
+# data-preparation, evaluation and serving paths, named so that the walk
+# cannot miss them; none may bring in jax, the JAX package, cv2 or PIL
 CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.models.unet",
            "sin3dm_tpu_torch.diffusion.gaussian",
@@ -145,7 +145,11 @@ CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.evaluation.ssfid",
            "sin3dm_tpu_torch.evaluation.sifid",
            "sin3dm_tpu_torch.evaluation.lpips",
-           "sin3dm_tpu_torch.evaluation.eval_full"}
+           "sin3dm_tpu_torch.evaluation.eval_full",
+           # serving and the reference's checkpoints
+           "sin3dm_tpu_torch.cli.app",
+           "sin3dm_tpu_torch.cli.import_torch_ckpt",
+           "sin3dm_tpu_torch.compat.torch_import"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
