@@ -121,6 +121,26 @@ of this repository.  Phases, each printing its results:
    feat.npz ends nearer it, a DDIM-10 round trip and vb_terms_bpd at
    t in {0, 1, 500, 999} in fp32 on the card against the host, a bf16
    DDIM-100 round trip, and calc_bpd_loop over T = 1000 (K1 8,000);
+12. two ranks that share the card (gloo: NCCL takes one card a rank),
+   started by the port's `parallel.spawn`: 12a the group's backend and
+   an all_reduce of a CUDA tensor; 12d 2 ranks x 16 of the diffusion
+   train step at the tag's width against this process at batch 32 with
+   the same draws, TF32 off (loss terms 1e-5 relative; each leaf's grad
+   within P12_GRAD_TOL of its largest of the same step in fp64 on the
+   card, this process's fp32 grad's distances printed beside; the DP
+   step with TF32 on, the control, must lie beyond that limit), the
+   ranks' params bit-identical after 4 steps, ms
+   per step with TF32 on and the gradient's all_reduce alone; 12e the AE
+   step at batch 65,536 on phase 8's synthetic shape the same way; 12f
+   two processes started with the SIN3DM_DIST variables give 12d's
+   first step; 12b `cli.sample --sample_devices 2` (the mesh
+   path, DDIM-100, 2 samples): each rank's K1 (800) and K2 launches and
+   outputs, its bf16 feat.npz bits against one process's batch-1 run,
+   seconds against one process at batch 2 and batch 1 x2, and in fp32
+   each feat.npz within 1e-4 of each plane's largest of the same
+   index's chain here; 12c `--sample_spatial 2` (DDIM-100, fp32, the
+   full planes) within 1e-4 of the unsharded chain of the differentiable
+   form, no K1 launch, all_reduces per forward, seconds;
 7. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -777,11 +797,10 @@ def profile_chain(argv, n_steps: int = 10) -> dict:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def configuration(name: str):
-    """The UNet configuration `name` of CONFIGS for a `with` block; the
-    environment is restored after it."""
-    old = {k: os.environ.get(k) for k in CONFIGS[name]}
-    os.environ.update(CONFIGS[name])
+def environ(**kv):
+    """Environment variables set for a `with` block, restored after it."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
     try:
         yield
     finally:
@@ -790,6 +809,14 @@ def configuration(name: str):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def configuration(name: str):
+    """The UNet configuration `name` of CONFIGS for a `with` block; the
+    environment is restored after it."""
+    with environ(**CONFIGS[name]):
+        yield
 
 
 def reset_counts() -> None:
@@ -985,6 +1012,46 @@ STAGES = (("chain", ("chain",)), ("grid", ("sdf grid",)),
           ("export", ("voxel.npz", "texture assembly", "export")))
 
 
+def check_mesh_sample(label: str, d: str, j: int, aabb, reso: int,
+                      texreso: int, n_faces: int, texels: int,
+                      stages) -> dict:
+    """One mesh-path sample's outputs in `d` (occupancy, object.obj inside
+    the AABB with 0 < faces <= n_faces, object.png, object.mtl); returns
+    its seconds by stage from the stage log `stages`."""
+    import numpy as np
+    lo, hi = np.asarray(aabb[:3]), np.asarray(aabb[3:])
+    voxel = (hi.max() - lo.min()) / reso
+    with np.load(os.path.join(d, "voxel.npz")) as f:
+        grid = f["vox_grid"]
+    occ = float(grid.mean())
+    v, nf = obj_mesh(os.path.join(d, "object.obj"))
+    inside = bool(((v >= lo - voxel) & (v <= hi + voxel)).all())
+    check_png(os.path.join(d, "object.png"), texreso)
+    with open(os.path.join(d, "object.mtl")) as fh:
+        mtl_ok = "map_Kd object.png" in fh.read()
+    print(f"{label} sample {j}: voxel grid {tuple(grid.shape)}, "
+          f"occupancy {occ:.4f}; object.obj {nf} faces, {len(v)} "
+          f"vertices, inside the AABB widened by one voxel: {inside}; "
+          f"object.png {texreso}x{texreso} RGB, valid; {texels} texels")
+    if not 0.15 <= occ <= 0.19:
+        fail(f"{label} sample {j}: occupancy {occ:.4f} outside "
+             "[0.15, 0.19]")
+    if not (0 < nf <= n_faces and inside and mtl_ok):
+        fail(f"{label} sample {j}: {nf} faces, inside {inside}, "
+             f"mtl {mtl_ok}")
+    secs = {}
+    for e in stages:
+        if e["dir"] == d:
+            secs[e["stage"]] = secs.get(e["stage"], 0.0) + e["seconds"]
+            if e["stage"] == "sdf grid":
+                secs["sdf grid"] += e["dispatch"]
+    out = {name: sum(secs.get(k, 0.0) for k in keys)
+           for name, keys in STAGES}
+    print(f"{label} sample {j} seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
 def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
                n_faces: int, slabs: int):
     """`cli.main(argv + --output <dir>)`, the mesh path, with the launch
@@ -993,7 +1060,6 @@ def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
     sample's texel chunks, and each sample's outputs.  Returns (main's
     result, counts, output dir, per-sample stage seconds); the caller
     removes the directory."""
-    import numpy as np
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
     out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_mesh_")
@@ -1013,40 +1079,12 @@ def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
           f"{sorted(texels.values())} texels)")
     if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2:
         fail("mesh path: the path did not launch the kernels as expected")
-    lo, hi = np.asarray(aabb[:3]), np.asarray(aabb[3:])
-    voxel = (hi.max() - lo.min()) / reso
     per_sample = {}
     for j in range(n):
         d = os.path.join(out_dir, f"{j:03d}")
-        with np.load(os.path.join(d, "voxel.npz")) as f:
-            grid = f["vox_grid"]
-        occ = float(grid.mean())
-        v, nf = obj_mesh(os.path.join(d, "object.obj"))
-        inside = bool(((v >= lo - voxel) & (v <= hi + voxel)).all())
-        check_png(os.path.join(d, "object.png"), texreso)
-        with open(os.path.join(d, "object.mtl")) as fh:
-            mtl_ok = "map_Kd object.png" in fh.read()
-        print(f"mesh path sample {j}: voxel grid {tuple(grid.shape)}, "
-              f"occupancy {occ:.4f}; object.obj {nf} faces, {len(v)} "
-              f"vertices, inside the AABB widened by one voxel: {inside}; "
-              f"object.png {texreso}x{texreso} RGB, valid; "
-              f"{texels[d]} texels")
-        if not 0.15 <= occ <= 0.19:
-            fail(f"mesh path sample {j}: occupancy {occ:.4f} outside "
-                 "[0.15, 0.19]")
-        if not (0 < nf <= n_faces and inside and mtl_ok):
-            fail(f"mesh path sample {j}: {nf} faces, inside {inside}, "
-                 f"mtl {mtl_ok}")
-        secs = {}
-        for e in res["stages"]:
-            if e["dir"] == d:
-                secs[e["stage"]] = secs.get(e["stage"], 0.0) + e["seconds"]
-                if e["stage"] == "sdf grid":
-                    secs["sdf grid"] += e["dispatch"]
-        per_sample[j] = {name: sum(secs.get(k, 0.0) for k in keys)
-                         for name, keys in STAGES}
-        print(f"mesh path sample {j} seconds: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in per_sample[j].items()))
+        per_sample[j] = check_mesh_sample("mesh path", d, j, aabb, reso,
+                                          texreso, n_faces, texels[d],
+                                          res["stages"])
     print(f"mesh path: generate {res['seconds']:.3f} s for {n} samples "
           f"({res['seconds'] / n:.3f} s per sample), host clock ending in "
           "a device sync; stage seconds are host-clock spans (the export "
@@ -3445,6 +3483,587 @@ def phase11(ucfg, want_forms: dict, want_k2: int, aabb,
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: several ranks on the one card
+# ---------------------------------------------------------------------------
+
+# 12b and 12c sample with DDIM-100 at the app's sizes (the sample CLI's
+# defaults: reso 256, texreso 2048, 10,000 faces)
+P12_DDIM = ["--use_ddim", "true", "--timestep_respacing", "ddim100"]
+# 12d: the global batch (the diffusion args.json's) over P12_RANKS ranks
+P12_B, P12_RANKS = 32, 2
+P12_TIMED = 10         # timed steps per rank, 12d and 12e
+# each leaf of a DP gradient from fp64, of the leaf's largest |g| (a
+# leaf an InstanceNorm cancels: of the whole gradient's largest, 1e-5).
+# 12d: eight sound runs read 0.86e-4 to 1.07e-4, the control (the same
+# DP step with TF32 on) 1.43e-2, beyond 2.5e-4 at 138 leaves (PERF.md,
+# section 6); 12e: 1e-4, the sound runs 3.06e-5, the control 5.34e-3,
+# beyond 1e-4 at 34 leaves.
+P12_GRAD_TOL = {"12d": 2.5e-4, "12e": 1e-4}
+
+
+def p12_sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def p12_group(group) -> dict:
+    """12a, in a rank: the group's backend and device, and an `all_reduce`
+    of a CUDA tensor to which rank r gives r + 1."""
+    import torch
+    from sin3dm_tpu_torch.parallel import mesh
+    x = torch.full((1024,), float(group.rank + 1), device=group.device)
+    mesh.all_reduce(group, x)
+    want = group.size * (group.size + 1) / 2
+    return {"backend": group.backend, "device": str(group.device),
+            "sum": float(x[0]), "sum_ok": bool((x == want).all().item())}
+
+
+def p12_train_parts(dev, group=None):
+    """12d's set-up at the tag's width: (state from the committed EMA,
+    model, tables, diffusion config, trainer config at the global batch
+    P12_B, this rank's rows of the batch, T, UNet config)."""
+    import dataclasses
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.compat.from_jax import unet_params_from_jax
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.core.triplane import Triplane, load_triplane_npz
+    from sin3dm_tpu_torch.diffusion.gaussian import tables_to_device
+    from sin3dm_tpu_torch.models.unet import unet_train_apply
+    from sin3dm_tpu_torch.training import diffusion as TD
+    args = cli.cfgmod.sample_args(["--tag", TAG])
+    ucfg = cli.cfgmod.unet_config_from_args(args)
+    tcfg = dataclasses.replace(
+        cli.cfgmod.diffusion_trainer_config_from_args(args),
+        batch_size=P12_B, steps_per_call=1)
+    tables = tables_to_device(cli.cfgmod.schedule_from_args(
+        args, respacing="").tables_f32(), dev)
+    T = int(tables["betas"].shape[0])
+    tree, _ = ckpt.load_tree(EMA_PATH)
+    state = TD.init_train_state(unet_params_from_jax(tree, dev), tcfg, T)
+    feat = load_triplane_npz(cli.cfgmod.encoding_feat_path(TAG), dev)
+    b = P12_B // (1 if group is None else group.size)
+    batch = Triplane(*[p[None].expand(b, *p.shape).contiguous()
+                       for p in feat])
+
+    def model(p, x, t):
+        return unet_train_apply(p, ucfg, x, t)
+    return (state, model, tables, cli.cfgmod.diffusion_config_from_args(args),
+            tcfg, batch, T, ucfg)
+
+
+def p12_first_step(dev, group=None, exact: bool = False,
+                   tf32_on: bool = False) -> dict:
+    """12d's first step with TF32 off (`tf32_on`: on, the control): the
+    draws of (seed 0, step 0) for the global batch, this rank's rows of
+    them, `compute_grads` (with a group: the whole batch's gradient and
+    terms).  `exact`: the same step in fp64 (parameters, batch, noise and
+    the UNet's compute), the witness the fp32 gradients are held to."""
+    import dataclasses
+    import torch
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.models.unet import unet_train_apply
+    from sin3dm_tpu_torch.parallel.mesh import local_rows
+    from sin3dm_tpu_torch.training import diffusion as TD
+    parts = p12_train_parts(dev, group)
+    state, model, tables, dcfg, tcfg, batch, T, ucfg = parts
+    t, noise = TD.draw_step_inputs(tcfg, state, batch, 0, 0, T, n=P12_B)
+    if group is not None:
+        t = local_rows(group, t)
+        noise = noise.map(lambda p: local_rows(group, p))
+    st = state
+    if exact:
+        leaves = [v.detach().double().requires_grad_()
+                  for _, v in ckpt.leaves_with_paths(state.params)]
+        st = dataclasses.replace(state, params=ckpt.unflatten_like(
+            state.params, leaves))
+        u64 = ucfg._replace(compute_dtype=torch.float64)
+
+        def model(p, x, tt):
+            return unet_train_apply(p, u64, x, tt)
+        batch, noise = batch.to(torch.float64), noise.to(torch.float64)
+    with tf32(tf32_on):
+        terms, _, g = TD.compute_grads(st, model, tables, dcfg, tcfg,
+                                       batch, t, noise, group)
+    torch.cuda.synchronize()
+    return {"parts": parts, "terms": terms, "g": g}
+
+
+def p12_timed(step, group, n: int) -> float:
+    """ms per call of `step()` over `n` calls, host clock from a sync (and
+    a barrier) to a sync."""
+    import torch
+    from sin3dm_tpu_torch.parallel.mesh import barrier
+    torch.cuda.synchronize()
+    barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def p12_ae_first(dev, npz: str, group=None, exact: bool = False,
+                 tf32_on: bool = False):
+    """12e's first AE step with TF32 off (`tf32_on`: on, the control) from
+    the committed AE's params, a fresh AdamW state and the offsets of
+    (seed 0, step 0): (state, terms, g, (acfg, tcfg, data, meta));
+    `exact`: in fp64, the witness."""
+    import dataclasses
+    import torch
+    from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.training import ae as TA
+    acfg, tcfg, data, meta = ae_setup(npz, dev)
+    tree, _ = ckpt.load_tree(os.path.join(TAG, "encoding", "ckpt_final.pth"),
+                             "params")
+    state = TA.init_train_state(ae_params_from_jax(tree, dev), tcfg)
+    offsets = TA.draw_offsets(tcfg, data, 0, 0)
+    st = state
+    if exact:
+        p32 = ae_params_from_jax(tree, dev)
+        leaves = [v.double().requires_grad_()
+                  for _, v in ckpt.leaves_with_paths(p32)]
+        st = dataclasses.replace(state, params=ckpt.unflatten_like(p32,
+                                                                   leaves))
+        data = TA.AEData(*[a.double() if a is not None and
+                           a.is_floating_point() else a for a in data])
+    with tf32(tf32_on):
+        terms, g = TA.compute_grads(st, acfg, tcfg, data,
+                                    meta["threshold"], offsets, group)
+    torch.cuda.synchronize()
+    return state, terms, g, (acfg, tcfg, data, meta)
+
+
+def p12_rank(group, npz: str) -> dict:
+    """12a, 12d and 12e on one rank of P12_RANKS that share the card."""
+    import torch
+    from sin3dm_tpu_torch.parallel import mesh
+    from sin3dm_tpu_torch.training import ae as TA
+    from sin3dm_tpu_torch.training import diffusion as TD
+    out = {"group": p12_group(group)}
+    first = p12_first_step(group.device, group)
+    state, model, tables, dcfg, tcfg, batch, T, _ = first["parts"]
+    out["terms"] = {k: v.cpu() for k, v in first["terms"].items()}
+    out["g"] = first["g"].cpu() if group.rank == 0 else None
+    g_tf32 = p12_first_step(group.device, group, tf32_on=True)["g"]
+    out["g_tf32"] = g_tf32.cpu() if group.rank == 0 else None
+    del g_tf32
+    step = TD.make_train_step(model, tables, dcfg, tcfg, group)
+    with tf32(False):
+        for _ in range(4):
+            step(state, batch, 0)
+    out["params_sha_4"] = p12_sha(state.flat)
+    with tf32(True):
+        step(state, batch, 0)
+        step(state, batch, 0)
+        torch.cuda.reset_peak_memory_stats()
+        out["ms_per_step"] = p12_timed(lambda: step(state, batch, 0), group,
+                                       P12_TIMED)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    buf = torch.zeros_like(state.flat)
+    out["all_reduce_ms"] = p12_timed(lambda: mesh.all_reduce(group, buf),
+                                     group, P12_TIMED)
+    out["n_params"] = state.flat.numel()
+    del first, state, batch, buf
+    torch.cuda.empty_cache()
+    st, terms, g, (acfg, atcfg, data, meta) = p12_ae_first(group.device, npz,
+                                                           group)
+    g_tf32 = p12_ae_first(group.device, npz, group, tf32_on=True)[2]
+    ae = {"terms": {k: float(v) for k, v in terms.items()},
+          "g": g.cpu() if group.rank == 0 else None,
+          "g_tf32": g_tf32.cpu() if group.rank == 0 else None}
+    del g_tf32
+    astep = TA.make_train_step(acfg, atcfg, meta["threshold"], group)
+    with tf32(True):
+        astep(st, data, 0)
+        astep(st, data, 0)
+        ae["ms_per_step"] = p12_timed(lambda: astep(st, data, 0), group,
+                                      P12_TIMED)
+    ae["params_sha"] = p12_sha(st.flat)
+    out["ae"] = ae
+    out["collectives"] = dict(mesh.COUNTS)
+    return out
+
+
+def p12_bootstrap_worker() -> None:
+    """12f's process: joins the group through the `SIN3DM_DIST` variables
+    and prints 12d's first step as one RESULT line."""
+    import torch.distributed as dist
+    from sin3dm_tpu_torch.parallel import maybe_initialize_distributed
+    group = maybe_initialize_distributed("cuda")
+    first = p12_first_step(group.device, group)
+    print("RESULT " + json.dumps({
+        "rank": group.rank, "backend": group.backend,
+        "loss": first["terms"]["loss"].cpu().tolist(),
+        "g_sha": p12_sha(first["g"])}), flush=True)
+    dist.destroy_process_group()
+
+
+def p12_bootstrap(want: dict) -> dict:
+    """12f. Two processes started with `SIN3DM_DIST=1` and a
+    `tcp://localhost` coordinator: each gives 12d's first step (per-example
+    losses within 1e-5 relative of 12d's, the gradient's bits printed)."""
+    import socket
+    import numpy as np
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "chip_smoke.p12_bootstrap_worker()")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(
+            os.environ, SIN3DM_DIST="1",
+            SIN3DM_COORDINATOR=f"localhost:{port}",
+            SIN3DM_NUM_PROCESSES="2", SIN3DM_PROCESS_ID=str(r)))
+        for r in range(2)]
+    res = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"12f: process {r} exited {p.returncode}:\n"
+                     f"{err[-4000:]}")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("RESULT ")]
+            res.append(json.loads(lines[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    want_loss = np.asarray(want["loss"])
+    errs = [float(np.abs(np.asarray(r["loss"]) - want_loss).max()
+                  / np.abs(want_loss).max()) for r in res]
+    same_g = [r["g_sha"] == want["g_sha"] for r in res]
+    print(f"12f bootstrap: 2 processes, ranks {[r['rank'] for r in res]}, "
+          f"backend {[r['backend'] for r in res]}, per-example losses "
+          f"within {max(errs):.3e} (rel; tol 1e-05) of 12d's, gradient "
+          f"bits equal to 12d's: {same_g}; {secs:.1f} s with their start")
+    if sorted(r["rank"] for r in res) != [0, 1] or max(errs) > 1e-5:
+        fail("12f: the bootstrapped processes did not give 12d's step")
+    return {"seconds": secs, "loss_rel_err": max(errs),
+            "g_bits_equal": same_g}
+
+
+def p12_grad_errs(state, got, want, cancel=None) -> dict:
+    """Per leaf, max |got - want| over the leaf's max |want|; a leaf that
+    `cancel` names (a bias an InstanceNorm removes), both sides' max over
+    the whole grad's max |want| instead."""
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    rel = _errs(state, got, want, True)
+    top = want.abs().max().item()
+    g_leaves = dict(ckpt.leaves_with_paths(state.tree(got)))
+    out = {}
+    for leaf, w in ckpt.leaves_with_paths(state.tree(want)):
+        out[leaf] = rel[leaf] if cancel is None or not cancel(leaf) else max(
+            w.abs().max().item(), g_leaves[leaf].abs().max().item()) / top
+    return out
+
+
+def p12_grads(label: str, state, dp, one, exact, control,
+              cancel=None) -> dict:
+    """The DP gradient against the step's gradient in fp64 (`exact`):
+    each leaf within P12_GRAD_TOL[label] of its largest, a cancelled leaf
+    within 1e-5 of the whole gradient's largest.  Beside it, printed
+    only, the one-process fp32 gradient of the same step against both:
+    two fp32 gradients summed in other orders (cuDNN's weight gradient
+    over batches of 16 and of 32) each err from the exact one by about
+    1e-4 of the first conv's largest, so the two lie up to twice that
+    apart.  The control, the DP step with TF32 on (`control`), must lie
+    beyond the limit at some leaf: a limit it passes would not catch
+    TF32 on, nor a rank's share lost or doubled."""
+    dp, one = dp.double(), one.double()
+    exact, control = exact.double(), control.double()
+    errs = {name: p12_grad_errs(state, got, want, cancel)
+            for name, got, want in (("dp vs fp64", dp, exact),
+                                    ("dp vs one process", dp, one),
+                                    ("one process vs fp64", one, exact),
+                                    ("control vs fp64", control, exact))}
+    tol = P12_GRAD_TOL[label]
+
+    def beyond(e):
+        return [leaf for leaf, v in e.items()
+                if v > (1e-5 if cancel is not None and cancel(leaf)
+                        else tol)]
+    bad = beyond(errs["dp vs fp64"])
+    out = {}
+    for name, e in errs.items():
+        leaf = max((k for k in e if cancel is None or not cancel(k)),
+                   key=e.get)
+        out[name] = {"worst": e[leaf], "leaf": leaf}
+        print(f"{label}: grads {name}, worst {e[leaf]:.3e} of the leaf's "
+              f"max |g| at {leaf}")
+    n_ctl = len(beyond(errs["control vs fp64"]))
+    print(f"{label}: DP grads beyond {tol:.1e} of each leaf's max |g| of "
+          f"fp64: {len(bad)} leaves {bad[:5]}; the control (TF32 on) "
+          f"beyond it at {n_ctl} leaves")
+    if bad:
+        fail(f"{label}: the DP gradient lies beyond its tolerance of the "
+             f"fp64 one at {bad[:5]}")
+    if not n_ctl:
+        fail(f"{label}: the TF32 control passes the gradient's limit")
+    out["control_leaves_beyond"] = n_ctl
+    return out
+
+
+def p12_training(tmp: str) -> dict:
+    """12a, 12d, 12e on P12_RANKS ranks that share the card, against this
+    process at the global batch; then 12f."""
+    import torch
+    from sin3dm_tpu_torch.parallel import spawn
+    npz = os.path.join(tmp, "shape.npz")
+    synth_shape_npz(npz)
+    ref = p12_first_step(torch.device("cuda"))
+    state = ref["parts"][0]
+    ref_terms = {k: v.cpu() for k, v in ref["terms"].items()}
+    ref_g = ref["g"].cpu()
+    del ref
+    exact_g = p12_first_step(torch.device("cuda"), exact=True)["g"].cpu()
+    torch.cuda.empty_cache()
+    ast, aterms, ag, _ = p12_ae_first(torch.device("cuda"), npz)
+    ref_ae = {k: float(v) for k, v in aterms.items()}
+    ref_ag = ag.cpu()
+    del ag
+    exact_ag = p12_ae_first(torch.device("cuda"), npz, exact=True)[2].cpu()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(p12_rank, P12_RANKS, npz, device="cuda")
+    secs = time.perf_counter() - t0
+    # 12a
+    for r, rk in enumerate(ranks):
+        gr = rk["group"]
+        print(f"12a rank {r}: backend {gr['backend']} on {gr['device']}, "
+              f"all_reduce of a CUDA tensor {gr['sum']} (want "
+              f"{P12_RANKS * (P12_RANKS + 1) / 2}): {gr['sum_ok']}")
+        if gr["backend"] != "gloo" or not gr["sum_ok"]:
+            fail("12a: the group is not gloo or its all_reduce is wrong")
+    # 12d
+    r0 = ranks[0]
+    terms_err = max(((r0["terms"][k] - v).abs() / v.abs()).max().item()
+                    for k, v in ref_terms.items())
+    print(f"12d: {P12_RANKS} ranks x {P12_B // P12_RANKS} against one "
+          f"process at batch {P12_B}, draws of (seed 0, step 0), TF32 off: "
+          f"loss terms within {terms_err:.3e} (rel; tol 1e-05)")
+    if terms_err > 1e-5:
+        fail("12d: loss terms outside the tolerance")
+    grads = p12_grads("12d", state, r0["g"], ref_g, exact_g, r0["g_tf32"])
+    shas = [rk["params_sha_4"] for rk in ranks]
+    print(f"12d: params after 4 steps bit-identical across the ranks: "
+          f"{len(set(shas)) == 1}")
+    if len(set(shas)) != 1:
+        fail("12d: the ranks' parameters differ")
+    ms = [rk["ms_per_step"] for rk in ranks]
+    ar = [rk["all_reduce_ms"] for rk in ranks]
+    print(f"12d: ms per global step (batch {P12_B}, TF32 on, host clock, "
+          f"{P12_TIMED} steps) {ms}; the {r0['n_params']}-parameter fp32 "
+          f"gradient's all_reduce alone {ar} ms ({max(ar) / max(ms):.1%} "
+          f"of the step); peak device memory per rank "
+          f"{[rk['peak_bytes'] / 2 ** 30 for rk in ranks]} GiB")
+    # 12e
+    a0 = ranks[0]["ae"]
+    ae_err = max(abs(a0["terms"][k] - v) / abs(v) for k, v in ref_ae.items())
+    print(f"12e: AE step, {P12_RANKS} ranks against one process at batch "
+          f"65,536: loss terms within {ae_err:.3e} (rel; tol 1e-05)")
+    if ae_err > 1e-5:
+        fail("12e: AE loss terms outside the tolerance")
+    ae_grads = p12_grads("12e", ast, a0["g"], ref_ag, exact_ag,
+                         a0["g_tf32"], cancel=cancelled_leaf)
+    ae_shas = [rk["ae"]["params_sha"] for rk in ranks]
+    ae_ms = [rk["ae"]["ms_per_step"] for rk in ranks]
+    print(f"12e: ms per AE step (TF32 on) {ae_ms}; params bit-identical "
+          f"across the ranks: {len(set(ae_shas)) == 1}")
+    if len(set(ae_shas)) != 1:
+        fail("12e: the ranks' AE parameters differ")
+    print(f"12a/12d/12e: {secs:.1f} s with the ranks' start")
+    boot = p12_bootstrap({"loss": r0["terms"]["loss"].tolist(),
+                          "g_sha": p12_sha(r0["g"])})
+    return {"seconds": secs, "train": {
+        "terms_rel_err": terms_err, "grads": grads, "ms_per_step": ms,
+        "all_reduce_ms": ar, "n_params": r0["n_params"],
+        "peak_bytes": [rk["peak_bytes"] for rk in ranks]},
+        "ae": {"terms_rel_err": ae_err, "grads": ae_grads,
+               "ms_per_step": ae_ms},
+        "collectives": [rk["collectives"] for rk in ranks],
+        "bootstrap": boot}
+
+
+def p12_feats(path: str):
+    import numpy as np
+    with np.load(path) as f:
+        return [f[k] for k in ("feat_xy", "feat_xz", "feat_yz")]
+
+
+def p12_plane_errs(got, want) -> list:
+    """Per plane, max |got - want| over the plane's max |want|."""
+    import numpy as np
+    return [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int) -> dict:
+    """12b. `cli.sample --sample_devices 2` (the mesh path, DDIM-100, 2
+    samples, bf16): each rank's K1 and K2 launches and outputs; one
+    process at batch 2 and at batch 1 x2 for the seconds (the bf16 bits
+    of each sample against the batch-1 run's); then in fp32 each DP
+    feat.npz against the chain of the same index at batch 1 in this
+    process."""
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    argv = ["--tag", TAG, *P12_DDIM, "--n_samples", "2"]
+    args = cli.cfgmod.sample_args(argv)
+    runs = {}
+    for name, extra in (("dp", ["--sample_devices", "2"]),
+                        ("batch 2", ["--pipeline_chunk", "2"]),
+                        ("batch 1 x2", [])):
+        reset_counts()
+        runs[name] = cli.main(argv + extra + ["--output",
+                                              os.path.join(tmp, name)])
+        torch.cuda.synchronize()
+        if name == "dp" and (read_counts()["k1"] or read_counts()["k2"]):
+            fail("12b: this process launched kernels while the ranks ran")
+    dp = runs["dp"]
+    launches = []
+    for r, rk in enumerate(dp["ranks"]):
+        texels = {e["dir"]: e["texels"] for e in rk["stages"]
+                  if e["stage"] == "texel dispatch"}
+        n = len(rk["paths"])
+        want_k2 = n * slabs + sum(texel_chunks(t) for t in texels.values())
+        got = rk["launches"]
+        names = [os.path.basename(os.path.dirname(p)) for p in rk["paths"]]
+        print(f"12b rank {r}: samples {names}, "
+              f"K1 launches by form {got['k1_forms']} (want {want_k1}), K2 "
+              f"{got['k2']} (want {want_k2}: {slabs} geo slabs + the texel "
+              f"chunks of {sorted(texels.values())} texels)")
+        if got["k1_forms"] != want_k1 or got["k2"] != want_k2:
+            fail(f"12b rank {r}: the kernels did not launch as expected")
+        for p in rk["paths"]:
+            d = os.path.dirname(p)
+            check_mesh_sample(f"12b rank {r}", d, int(os.path.basename(d)),
+                              aabb, args.reso, args.texreso, args.n_faces,
+                              texels[d], rk["stages"])
+        launches.append({"k1": got["k1"], "k2": got["k2"]})
+    bits = [all((a == b).all() for a, b in zip(
+        p12_feats(os.path.join(tmp, "dp", f"{j:03d}", "feat.npz")),
+        p12_feats(os.path.join(tmp, "batch 1 x2", f"{j:03d}",
+                               "feat.npz")))) for j in range(2)]
+
+    def chain(res):
+        return sum(e["seconds"] for e in res["stages"]
+                   if e["stage"] == "chain")
+    secs = {"dp": dp["seconds"], "dp_chain_by_rank": [
+        chain(rk) for rk in dp["ranks"]],
+        "dp_generate_by_rank": [rk["seconds"] for rk in dp["ranks"]],
+        "batch 2": runs["batch 2"]["seconds"],
+        "batch 2 chain": chain(runs["batch 2"]),
+        "batch 1 x2": runs["batch 1 x2"]["seconds"],
+        "batch 1 x2 chain": chain(runs["batch 1 x2"])}
+    print(f"12b: bf16 feat.npz bits equal to the one-process batch-1 run's: "
+          f"{bits}; seconds (host clock): 2 ranks {secs['dp']:.3f} with "
+          f"their start (per rank: generate {secs['dp_generate_by_rank']}, "
+          f"chain {secs['dp_chain_by_rank']}), one process at batch 2 "
+          f"{secs['batch 2']:.3f} (chain {secs['batch 2 chain']:.3f}), at "
+          f"batch 1 x2 {secs['batch 1 x2']:.3f} (chain "
+          f"{secs['batch 1 x2 chain']:.3f})")
+    # fp32: the DP samples against the one-process chain of each index
+    vox = argv + ["--vox", "--reso", "64"]
+    with environ(SIN3DM_SAMPLE_DTYPE="train"):
+        f32 = cli.main(vox + ["--sample_devices", "2", "--output",
+                              os.path.join(tmp, "fp32")])
+        sampler, C, sizes, _ = cli._build_sampler(cli.cfgmod.sample_args(
+            vox))
+        errs = []
+        for j in range(2):
+            x = sampler(0, j, 1, C, sizes)
+            want = [p[0].permute(2, 0, 1).cpu().numpy() for p in x]
+            errs.append(p12_plane_errs(p12_feats(os.path.join(
+                tmp, "fp32", f"{j:03d}", "feat.npz")), want))
+    worst = max(max(e) for e in errs)
+    print(f"12b: fp32 DP feat.npz against this process's batch-1 chain of "
+          f"the same index, per plane of max |x|: {errs} (tol 1e-04)")
+    if worst > 1e-4:
+        fail("12b: the fp32 DP samples differ from the one-process chain")
+    return {"launches_by_rank": launches, "bf16_bits_equal": bits,
+            "seconds": secs, "fp32_worst_rel": worst,
+            "fp32_seconds": f32["seconds"]}
+
+
+def p12_spatial(tmp: str) -> dict:
+    """12c. `cli.sample --sample_spatial 2` (DDIM-100, fp32, the full
+    planes) against the unsharded chain of the differentiable form in
+    this process; K1 launches (0), collectives per forward, seconds."""
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.compat.from_jax import unet_params_from_jax
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.diffusion.gaussian import tables_to_device
+    from sin3dm_tpu_torch.diffusion.sampling import make_sampler
+    from sin3dm_tpu_torch.models.unet import unet_train_apply
+    argv = ["--tag", TAG, *P12_DDIM, "--n_samples", "1", "--vox", "--reso",
+            "64"]
+    with environ(SIN3DM_SAMPLE_DTYPE="train"):
+        sp = cli.main(argv + ["--sample_spatial", "2", "--output",
+                              os.path.join(tmp, "spatial")])
+        args = cli.cfgmod.sample_args(argv)
+        ucfg = cli._unet_config(args)
+    params = unet_params_from_jax(ckpt.load_tree(EMA_PATH)[0], "cuda")
+    tables = tables_to_device(cli.cfgmod.schedule_from_args(
+        args, respacing="ddim100").tables_f32(), "cuda")
+    sampler = make_sampler(
+        lambda x, t: unet_train_apply(params, ucfg, x, t), tables,
+        cli.cfgmod.diffusion_config_from_args(args), use_ddim=True,
+        device="cuda")
+    C = ucfg.in_channels
+    sizes = cli._target_sizes(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = sampler(0, 0, 1, C, sizes)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs = p12_plane_errs(p12_feats(os.path.join(tmp, "spatial", "000",
+                                                 "feat.npz")),
+                          [p[0].permute(2, 0, 1).cpu().numpy() for p in x])
+    k1 = [rk["launches"]["k1"] for rk in sp["ranks"]]
+    # per forward: the chain's all_reduces but the final gather's 3
+    per_fwd = [(rk["collectives"]["all_reduce"] - 3) / 100
+               for rk in sp["ranks"]]
+    chain = [rk["sample_seconds"] for rk in sp["ranks"]]
+    print(f"12c: spatial sampling over 2 ranks, planes {sizes} fp32: "
+          f"feat.npz against the unsharded chain, per plane of max |x|: "
+          f"{errs} (tol 1e-04); K1 launches {k1} (want 0); all_reduces per "
+          f"forward {per_fwd}; chain seconds by rank {chain} against "
+          f"{plain_s:.3f} unsharded ({max(chain) / plain_s:.2f}x); the run "
+          f"{sp['seconds']:.3f} s with the ranks' start")
+    if max(errs) > 1e-4 or any(k1):
+        fail("12c: spatial sampling differs from the unsharded chain or "
+             "launched K1")
+    return {"worst_rel": max(errs), "launches_k1": k1,
+            "launches_k2": [rk["launches"]["k2"] for rk in sp["ranks"]],
+            "all_reduce_per_forward": per_fwd, "chain_seconds": chain,
+            "unsharded_chain_seconds": plain_s, "seconds": sp["seconds"]}
+
+
+def phase12(want_k1: dict, aabb, slabs: int) -> dict:
+    """12a-12f: two ranks that share the one card."""
+    import torch
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_ranks_")
+    t0 = time.perf_counter()
+    try:
+        out = {"training": p12_training(tmp)}
+        with configuration("default"):
+            out["sampling"] = p12_sampling(tmp, want_k1, aabb, slabs)
+            out["spatial"] = p12_spatial(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -3626,6 +4245,12 @@ def main() -> int:
         serve, default=float))
     served = serve["serving"]
 
+    # 12. two ranks that share the card: the group, DP and spatial
+    # sampling through the CLI, DP training steps, the bootstrap
+    ranks12 = phase12(want(100), aabb, slabs)
+    print("several ranks: " + json.dumps(ranks12, default=float))
+    dp12 = ranks12["sampling"]["launches_by_rank"]
+
     # 7. results
     def row(name, source, replaces, launches, r, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3669,6 +4294,9 @@ def main() -> int:
             launches_serving_by_request={
                 k: v["k1"] for k, v in served["launches"].items()},
             launches_bpd_loop=serve["library"]["bpd_loop"]["launches"],
+            launches_dp_sampling_by_rank=[r["k1"] for r in dp12],
+            launches_spatial_sampling_by_rank=ranks12["spatial"][
+                "launches_k1"],
             max_abs_err_batch1=k1_b1["default"]["max_abs_err"]),
         row("conv3x3_rollout act/skip/emit_stats (K1')", src,
             "sin3dm_tpu/ops/fused_conv.py:177",
@@ -3701,7 +4329,10 @@ def main() -> int:
             launches_sample_after_training=counts6["k2"],
             launches_serving=served["total"]["k2"],
             launches_serving_by_request={
-                k: v["k2"] for k, v in served["launches"].items()}),
+                k: v["k2"] for k, v in served["launches"].items()},
+            launches_dp_sampling_by_rank=[r["k2"] for r in dp12],
+            launches_spatial_sampling_by_rank=ranks12["spatial"][
+                "launches_k2"]),
         row("skip_mlp geo head [2^20, 64] -> 1 (evaluate's surface chunk)",
             "sin3dm_tpu_torch/csrc/fused_mlp.cu",
             "sin3dm_tpu/ops/fused_mlp.py:79",
@@ -3729,7 +4360,11 @@ def main() -> int:
           "counts the launches of that shape in 8c's CLI run, by the "
           "wrapper's count by shape; 'launches_serving' sums phase 11b's "
           "requests (by request under 'launches_serving_by_request'), "
-          "'launches_bpd_loop' is 11c's calc_bpd_loop (T 1000)")
+          "'launches_bpd_loop' is 11c's calc_bpd_loop (T 1000); "
+          "'launches_dp_sampling_by_rank' and "
+          "'launches_spatial_sampling_by_rank' are each rank's own count "
+          "in 12b (DDIM-100, one sample a rank, the mesh path) and 12c "
+          "(spatial: no K1; rank 0's --vox decode at reso 64 launches K2)")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

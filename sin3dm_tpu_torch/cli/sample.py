@@ -5,6 +5,7 @@
         [--reso 256 --texreso 2048 --n_faces 10000] [--pipeline_chunk K]
         [--inpaint true --inpaint_region x0 x1 y0 y1 z0 z1
          [--inpaint_feat F] [--is_mask_t0 true]] [--device cuda|cpu]
+        [--sample_devices N | --sample_spatial N]
 
 Draws triplane samples from the trained diffusion model and writes one
 `feat.npz` per sample under `<tag>/<output>/<j:03d>/`.  By default each
@@ -21,8 +22,17 @@ the args.json dtype) and bf16 operands in the decode heads
 `SIN3DM_FUSED_ACT=1` select the UNet's opt-in configurations
 (`models/unet.py`).  `--inpaint` (DDIM only) keeps the tag's own
 `feat.npz` (or `--inpaint_feat`) outside the box `--inpaint_region` and
-regenerates inside it.  Data-parallel and spatial sampling are later
-slices (multi-device).
+regenerates inside it.
+
+Several devices (0 = every card): `--sample_devices N` starts N ranks
+(`parallel.spawn`; N at most --n_samples), rank r draws and decodes its
+contiguous block of the samples, as one process would draw them.
+`--sample_spatial N` shards every plane's dim 1 over N ranks
+(`models/unet.py`; H and W must divide by 2N for the one down level)
+and rank 0 saves and decodes.  Ranks share a card where there are fewer
+cards than ranks.  The kernels and the geometry library are built before
+the ranks start.  `main` returns the ranks' results beside the merged
+paths.
 """
 
 from __future__ import annotations
@@ -30,12 +40,14 @@ from __future__ import annotations
 import glob
 import os
 import time
+from typing import Tuple
 
 import torch
 
 from ..core import checkpoint as ckpt
 from ..core import config as cfgmod
 from ..core.triplane import Triplane, load_triplane_npz, save_triplane_npz
+from ..parallel.mesh import shard_range
 
 
 def resolve_device(name: str, index: int = 0) -> torch.device:
@@ -50,18 +62,44 @@ def resolve_device(name: str, index: int = 0) -> torch.device:
     return torch.device("cuda", index)
 
 
-def _check_slice(args) -> None:
-    where = "not ported yet (ROADMAP.md, A: multi-device)"
-    if int(getattr(args, "sample_devices", 1)) != 1:
-        raise NotImplementedError(
-            f"--sample_devices: data-parallel sampling is {where}")
-    if int(getattr(args, "sample_spatial", 1)) != 1:
-        raise NotImplementedError(
-            f"--sample_spatial: plane-spatial sharding is {where}")
+def _target_sizes(args) -> Tuple[int, int, int]:
+    """(H, W, D): the tag's feat.npz planes times --resize."""
+    feat = load_triplane_npz(cfgmod.encoding_feat_path(args.tag))
+    return tuple(int(n * f) for n, f in zip(feat.sizes, args.resize))
 
 
-def _unet_config(args):
+def device_count(n: int, device: str) -> int:
+    """A device-count flag: 0 means every card (the CPU is one device)."""
+    if n:
+        return n
+    return torch.cuda.device_count() if device == "cuda" else 1
+
+
+def multi_device(args) -> Tuple[int, int]:
+    """(data-parallel ranks, spatial ranks) from --sample_devices and
+    --sample_spatial; ValueError for what JAX refuses: both at once, or
+    planes whose H or W does not divide by 2^(levels - 1) x the spatial
+    ranks."""
+    n_dp = device_count(int(getattr(args, "sample_devices", 1)), args.device)
+    n_sp = device_count(int(getattr(args, "sample_spatial", 1)), args.device)
+    if n_dp > 1 and n_sp > 1:
+        raise ValueError("--sample_devices and --sample_spatial are "
+                         "mutually exclusive")
+    if n_sp > 1:
+        H, W, _ = _target_sizes(args)
+        m = 2 ** (len(cfgmod.unet_config_from_args(args).channel_mult) - 1)
+        for name, dim in (("H", H), ("W", W)):
+            if dim % (m * n_sp):
+                raise ValueError(
+                    f"--sample_spatial {n_sp} needs {name}={dim} divisible "
+                    f"by {m * n_sp} (the down levels and even shards)")
+    return n_dp, n_sp
+
+
+def _unet_config(args, spatial_group=None):
     ucfg = cfgmod.unet_config_from_args(args)
+    if spatial_group is not None:
+        ucfg = ucfg._replace(spatial_group=spatial_group)
     if os.environ.get("SIN3DM_SAMPLE_DTYPE", "bf16") == "bf16":
         ucfg = ucfg._replace(compute_dtype=torch.bfloat16, fast_norm=True)
         print("sampling in bfloat16 + fast_norm (set "
@@ -69,18 +107,19 @@ def _unet_config(args):
     return ucfg
 
 
-def build_model(args, device: torch.device):
+def build_model(args, device: torch.device, spatial_group=None):
     """(model, tables, diffusion config): the EMA UNet as a
     `(x_t, t_model) -> Triplane` function on `device`, and the (respaced)
     schedule's tables there.  The EMA file is the npz container or a
-    reference torch state dict (`compat/torch_import.py`)."""
+    reference torch state dict (`compat/torch_import.py`).  With a
+    `spatial_group` the model takes and gives this rank's plane shards."""
     from ..compat import torch_import as ti
     from ..compat.from_jax import unet_params_from_jax
     from ..diffusion.gaussian import tables_to_device
     from ..models.unet import unet_apply
     from ..ops import pack_params
 
-    ucfg = _unet_config(args)
+    ucfg = _unet_config(args, spatial_group)
     model_path = cfgmod.diffusion_model_path(args.tag, args.ema_rate,
                                              args.diff_n_iters)
     if ti.is_torch_file(model_path):
@@ -115,29 +154,27 @@ def _inpaint_inputs(args, sizes, device):
             region_keep_masks(sizes, tuple(args.inpaint_region), device))
 
 
-def _build_sampler(args):
+def _build_sampler(args, spatial_group=None):
     """(sampler, channels, sizes, device): the reverse chain over the EMA
-    checkpoint, plane sizes from the tag's feat.npz times --resize."""
+    checkpoint, plane sizes from the tag's feat.npz times --resize; with
+    a `spatial_group` the chain runs on this rank's rows of each plane
+    and the sampler gives every rank the whole planes."""
     from ..diffusion.sampling import make_sampler
 
-    _check_slice(args)
     device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
-    feat = load_triplane_npz(cfgmod.encoding_feat_path(args.tag))
-    C = feat.channels
-    H, W, D = feat.sizes
-    H = int(H * args.resize[0])
-    W = int(W * args.resize[1])
-    D = int(D * args.resize[2])
+    C = load_triplane_npz(cfgmod.encoding_feat_path(args.tag)).channels
+    H, W, D = _target_sizes(args)
     print("H, W, D:", H, W, D)
 
     y0 = mask = None
     if getattr(args, "inpaint", False):
         y0, mask = _inpaint_inputs(args, (H, W, D), device)
-    model, tables, dcfg = build_model(args, device)
+    model, tables, dcfg = build_model(args, device, spatial_group)
     sampler = make_sampler(model, tables, dcfg, use_ddim=args.use_ddim,
                            device=device, y0=y0, mask=mask,
                            is_mask_t0=bool(getattr(args, "is_mask_t0",
-                                                   False)))
+                                                   False)),
+                           spatial_group=spatial_group)
     return sampler, C, (H, W, D), device
 
 
@@ -151,18 +188,32 @@ def _save_samples(result_dir: str, samples: Triplane, start: int,
     return paths
 
 
-def sample_diffusion(args):
-    """Draw all samples and save one feat.npz each; returns the paths."""
-    sampler, C, sizes, _ = _build_sampler(args)
+def _block(args, group=None) -> Tuple[int, int]:
+    """(first, count) of the samples this process draws: all of them, or
+    with a data `group` this rank's contiguous block."""
+    if group is None:
+        return 0, args.n_samples
+    return shard_range(args.n_samples, group.rank, group.size)
+
+
+def sample_diffusion(args, group=None, spatial_group=None):
+    """Draw the samples (with a data `group` this rank's block of them)
+    and save one feat.npz each; returns the paths.  With a
+    `spatial_group` every rank runs every chain and rank 0 saves (the
+    other ranks return no path)."""
+    sampler, C, sizes, _ = _build_sampler(args, spatial_group)
     result_dir = os.path.join(args.tag, args.output)
     os.makedirs(result_dir, exist_ok=True)
     seed = int(getattr(args, "seed", 0))
-    batch_size = max(1, min(args.diff_batch_size, args.n_samples))
+    first, count = _block(args, group)
+    batch_size = max(1, min(args.diff_batch_size, count))
+    saves = spatial_group is None or spatial_group.rank == 0
     paths = []
-    for i in range(0, args.n_samples, batch_size):
-        bs = min(batch_size, args.n_samples - i)
+    for i in range(first, first + count, batch_size):
+        bs = min(batch_size, first + count - i)
         samples = sampler(seed, i, bs, C, sizes)
-        paths.extend(_save_samples(result_dir, samples, i, bs))
+        if saves:
+            paths.extend(_save_samples(result_dir, samples, i, bs))
     return paths
 
 
@@ -216,13 +267,14 @@ def decode(args, paths):
         list(pool.map(decode_one, paths))
 
 
-def generate(args):
+def generate(args, group=None):
     """Sample and decode to meshes through the trainer's cross-chunk
     pipeline (`AETrainer.pipelined_generate`): chunks of --pipeline_chunk
     samples; a chunk's geo grids are queued after its chain, its meshes
     decoded after the next chunk's chain.  Sample j depends only on
-    (--seed, j), whatever the chunking.  Returns (paths, the trainer's
-    stage log, with each sample's share of its chunk's chain)."""
+    (--seed, j), whatever the chunking.  With a data `group`, this
+    rank's block of the samples.  Returns (paths, the trainer's stage log, with
+    each sample's share of its chunk's chain)."""
     sampler, C, sizes, device = _build_sampler(args)
     trainer = _make_trainer(args, device)
     trainer.stage_log = []
@@ -230,20 +282,22 @@ def generate(args):
     result_dir = os.path.join(args.tag, args.output)
     os.makedirs(result_dir, exist_ok=True)
     seed = int(getattr(args, "seed", 0))
+    first, count = _block(args, group)
+    end = first + count
     chunk = max(1, min(int(getattr(args, "pipeline_chunk", 1) or 1),
-                       args.diff_batch_size, args.n_samples))
+                       args.diff_batch_size, count))
     paths = []
     chain_seconds = {}
 
     def sample_chunk(i):
         t0 = time.perf_counter()
-        samples = sampler(seed, i, min(chunk, args.n_samples - i), C, sizes)
+        samples = sampler(seed, i, min(chunk, end - i), C, sizes)
         _sync(device)
         chain_seconds[i] = time.perf_counter() - t0
         return samples
 
     def prepare_chunk(i, samples):
-        bs = min(chunk, args.n_samples - i)
+        bs = min(chunk, end - i)
         new = _save_samples(result_dir, samples, i, bs)
         paths.extend(new)
         dirs = [os.path.dirname(p) for p in new]
@@ -253,7 +307,7 @@ def generate(args):
         return dirs, [samples.map(lambda p, j=j: p[j]) for j in range(bs)]
 
     trainer.pipelined_generate(
-        range(0, args.n_samples, chunk), sample_chunk, prepare_chunk,
+        range(first, end, chunk), sample_chunk, prepare_chunk,
         args.reso, n_faces=args.n_faces, texture_reso=args.texreso,
         save_highres_mesh=False, n_surf_pc=-1, mtl_path=mtl_path,
         file_format=args.file_format)
@@ -265,30 +319,91 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None):
-    """With --vox: sample, then decode to voxel grids; returns {"paths",
-    "sample_seconds", "decode_seconds"} (host clock, each phase ending in a
-    device sync).  Else the mesh path (`generate`); returns {"paths",
-    "seconds", "stages"}: its host seconds and the per-sample stage log."""
-    args = cfgmod.sample_args(argv)
+def run(args, group=None, spatial_group=None) -> dict:
+    """Sample and decode as the flags say, in this process: all samples,
+    or with a data `group` this rank's block, or with a `spatial_group`
+    every chain sharded and rank 0's decode.  With --vox returns
+    {"paths", "sample_seconds", "decode_seconds"} (host clock, each phase
+    ending in a device sync), else the mesh path's {"paths", "seconds",
+    "stages"} (`generate`'s host seconds and per-sample stage log)."""
     device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
     t0 = time.perf_counter()
-    if not args.vox:
-        paths, stages = generate(args)
+    if not args.vox and spatial_group is None:
+        paths, stages = generate(args, group)
         _sync(device)
         seconds = time.perf_counter() - t0
         print(f"generated {len(paths)} meshes in {seconds:.3f} s")
         return {"paths": paths, "seconds": seconds, "stages": stages}
-    paths = sample_diffusion(args)
+    paths = sample_diffusion(args, group, spatial_group)
     _sync(device)
     t1 = time.perf_counter()
-    decode(args, paths)
+    if paths:
+        decode(args, paths)
     _sync(device)
     t2 = time.perf_counter()
     print(f"sampled {len(paths)} in {t1 - t0:.3f} s, decoded in "
           f"{t2 - t1:.3f} s")
-    return {"paths": paths, "sample_seconds": t1 - t0,
-            "decode_seconds": t2 - t1}
+    if args.vox:
+        return {"paths": paths, "sample_seconds": t1 - t0,
+                "decode_seconds": t2 - t1}
+    return {"paths": paths, "seconds": t2 - t0, "stages": [],
+            "sample_seconds": t1 - t0}
+
+
+def _rank(group, args, data_parallel: bool) -> dict:
+    """One rank of `main`: `run` on this rank's device, with this
+    process's kernel launches and collectives (all its own) added."""
+    from ..ops.fused_conv import conv3x3_rollout
+    from ..ops.fused_mlp import skip_mlp
+    from ..parallel import mesh
+    if group.device.type == "cuda":
+        args.gpu_id = group.device.index
+    out = run(args, group if data_parallel else None,
+              None if data_parallel else group)
+    out["launches"] = {"k1": conv3x3_rollout.launches,
+                       "k1_forms": dict(conv3x3_rollout.form_launches),
+                       "k2": skip_mlp.launches,
+                       "k2_shapes": dict(skip_mlp.shape_launches)}
+    out["collectives"] = dict(mesh.COUNTS)
+    return out
+
+
+def launch(args, n_dp: int, n_sp: int) -> dict:
+    """Run `run` on several ranks (`parallel.spawn`), the kernels and the
+    geometry library built here first.  Returns {"paths" (every rank's, in
+    sample order), "seconds" (host clock around the ranks, their start
+    included), "ranks" (each rank's `run` result with its "launches" and
+    "collectives")}."""
+    from ..parallel import spawn
+    resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
+    n = n_dp if n_dp > 1 else n_sp
+    if n_dp > 1 and n > args.n_samples:
+        n = args.n_samples
+        print(f"--sample_devices {n_dp}: {args.n_samples} samples take "
+              f"{n} ranks")
+    if args.device == "cuda":
+        from ..ops import _build
+        _build.build(["fused_conv", "fused_mlp"])
+    if not args.vox:
+        from ..geometry import native
+        native.build()
+    what = "data-parallel" if n_dp > 1 else "plane-spatial"
+    print(f"sampling over {n} ranks ({what})")
+    t0 = time.perf_counter()
+    ranks = spawn(_rank, n, args, n_dp > 1, device=args.device)
+    seconds = time.perf_counter() - t0
+    return {"paths": [p for r in ranks for p in r["paths"]],
+            "seconds": seconds, "ranks": ranks}
+
+
+def main(argv=None):
+    """Sample and decode as the flags say (`run`), on several ranks where
+    --sample_devices or --sample_spatial asks for them (`launch`)."""
+    args = cfgmod.sample_args(argv)
+    n_dp, n_sp = multi_device(args)
+    if n_dp > 1 or n_sp > 1:
+        return launch(args, n_dp, n_sp)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ leaf layout; the port's sampler and JAX's loaders both read them.
 E's `feat.npz` (`T/encoding` links to E).  Runs on the card unless
 `--device cpu` is given.
 
+Several devices, as JAX's CLI: the AE stage runs on one device in this
+process; diffusion then trains data-parallel over `--n_devices` ranks
+(0, the default, is every card; `parallel.spawn` starts them, sharing a
+card where there are fewer cards than ranks) where the batch divides
+over them, else on this one device, which it prints.  Processes started
+by hand with `SIN3DM_DIST=1` and the coordinator's variables
+(`parallel.maybe_initialize_distributed`) are the ranks themselves: rank
+0 runs the AE stage while the others wait, then all train diffusion.
+
 Precision: `main` lets cuDNN convolutions and matmuls use TF32 for fp32
 operands while it trains, both stages (and restores the flags after),
 the card's counterpart of the TPU's default single-pass precision for
@@ -33,17 +42,7 @@ import torch
 
 from ..core import config as cfgmod
 from ..core import logger
-from .sample import resolve_device
-
-_LATER = "not ported yet (ROADMAP.md, A"
-
-
-def _refuse_multi_device(args, what: str) -> None:
-    n_dev = int(getattr(args, "n_devices", 0))
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"--n_devices {n_dev}: data-parallel {what} is {_LATER}: "
-            "multi-device)")
+from .sample import device_count, resolve_device
 
 
 def train_ae(args):
@@ -52,7 +51,6 @@ def train_ae(args):
     from ..core.triplane import save_triplane_npz
     from ..training.ae import AETrainer
 
-    _refuse_multi_device(args, "AE training")
     if args.enc_log is not None:
         raise ValueError(
             "--enc_log reuses a trained encoding: the AE stage (--only_enc) "
@@ -78,22 +76,32 @@ def train_ae(args):
     return trainer
 
 
-def train_diffusion(args):
-    """Train the UNet on the tag's feat.npz; returns the loop."""
+def train_diffusion(args, group=None):
+    """Train the UNet on the tag's feat.npz; returns the loop.  With a data
+    `group` this rank holds its share of the batch (rank 0 logs and
+    writes the checkpoints)."""
     from ..core.triplane import Triplane, load_triplane_npz
     from ..diffusion.gaussian import tables_to_device
     from ..models.unet import init_unet, unet_train_apply
     from ..training.diffusion import DiffusionTrainLoop
 
-    _refuse_multi_device(args, "training")
-    device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
-    print("[Training diffusion]")
+    device = (group.device if group is not None else
+              resolve_device(args.device, int(getattr(args, "gpu_id", 0))))
+    main_rank = group is None or group.rank == 0
+    if main_rank:
+        print("[Training diffusion]")
     log_dir = cfgmod.diffusion_log_dir(args.tag)
-    logger.configure(dir=log_dir)
+    logger.configure(dir=log_dir, format_strs=None if main_rank else [])
 
     logger.log("creating data loader...")
     feat = load_triplane_npz(cfgmod.encoding_feat_path(args.tag), device)
     B = args.diff_batch_size
+    if group is not None:
+        if B % group.size:
+            raise ValueError(f"--diff_batch_size {B} does not divide over "
+                             f"{group.size} ranks")
+        B //= group.size
+        logger.log(f"data-parallel over {group.size} ranks, {B} each")
     batch = Triplane(*[p[None].expand(B, *p.shape).contiguous()
                        for p in feat])
 
@@ -110,7 +118,7 @@ def train_diffusion(args):
         lambda p, x, t: unet_train_apply(p, ucfg, x, t),
         params, tables, dcfg, tcfg, log_dir, batch,
         sample_hook=_make_sample_viz_hook(ucfg, feat.sizes),
-        resume=bool(getattr(args, "resume", 0)))
+        resume=bool(getattr(args, "resume", 0)), group=group)
     if getattr(args, "profile", 0):
         from ..core.profiling import maybe_trace
         with maybe_trace(log_dir, True):
@@ -148,29 +156,76 @@ def _make_sample_viz_hook(ucfg, sizes):
 
 
 class TrainResult(NamedTuple):
-    """What `main` trained: the AE trainer (None with --enc_log) and the
-    diffusion loop (None with --only_enc)."""
+    """What `main` trained: the AE trainer (None with --enc_log, and on
+    the ranks other than 0 of a bootstrapped group) and the diffusion
+    loop (None with --only_enc; over spawned ranks, their
+    `_diffusion_rank` summaries in rank order)."""
     ae: Optional[object]
     diffusion: Optional[object]
+
+
+def _tf32(on: bool):
+    """Set cuDNN's and matmul's TF32 flags; returns the old pair."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    return old
+
+
+def _diffusion_rank(group, args) -> dict:
+    """One spawned rank of diffusion training: {"rank", "step", the
+    parameters' sha256 (equal on every rank)}."""
+    import hashlib
+    from ..core.rng import seed_all
+    seed_all(0)
+    _tf32(True)
+    loop = train_diffusion(args, group)
+    st = loop.state
+    return {"rank": group.rank, "step": st.step, "params_sha256":
+            hashlib.sha256(st.flat.detach().cpu().numpy().tobytes())
+            .hexdigest()}
+
+
+def diffusion_ranks(args) -> int:
+    """How many ranks train diffusion: --n_devices (0 = every card) where
+    the batch divides over them, else 1, with the reason printed."""
+    n = device_count(int(getattr(args, "n_devices", 0)), args.device)
+    if n > 1 and args.diff_batch_size % n:
+        print(f"--n_devices {n}: --diff_batch_size {args.diff_batch_size} "
+              "does not divide over the ranks; training on one device")
+        return 1
+    return n
 
 
 def main(argv=None) -> TrainResult:
     """Train as the flags say, with TF32 on for the call (the flags are
     restored after it): the AE unless --enc_log names a trained one, then
-    diffusion unless --only_enc."""
+    diffusion unless --only_enc, on several ranks as `--n_devices` or the
+    `SIN3DM_DIST` bootstrap says (see the module doc)."""
     from ..core.rng import seed_all
+    from ..parallel import maybe_initialize_distributed, spawn
+    from ..parallel.mesh import barrier
     args = cfgmod.train_args(argv)
+    group = maybe_initialize_distributed(args.device)
     seed_all(0)
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    flags = _tf32(True)
     try:
         trainer = loop = None
         if args.only_enc or args.enc_log is None:
-            trainer = train_ae(args)
+            if group is None or group.rank == 0:
+                if group is not None:
+                    args.gpu_id = group.device.index or 0
+                trainer = train_ae(args)
+            if group is not None:
+                barrier(group)
         if not args.only_enc:
-            loop = train_diffusion(args)
+            n = 1 if group is not None else diffusion_ranks(args)
+            if n > 1:
+                resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
+                loop = spawn(_diffusion_rank, n, args, device=args.device)
+            else:
+                loop = train_diffusion(args, group)
         return TrainResult(trainer, loop)
     finally:
         (torch.backends.cudnn.allow_tf32,

@@ -219,7 +219,10 @@ def train_args(argv=None):
     if args.enc_log is not None:
         load_and_overwrite_args(args, os.path.join(args.enc_log, "args.json"))
         if not os.path.exists(enc_dir):
-            os.symlink(os.path.abspath(args.enc_log), enc_dir)
+            try:
+                os.symlink(os.path.abspath(args.enc_log), enc_dir)
+            except FileExistsError:     # another rank of the group made it
+                pass
     else:
         os.makedirs(enc_dir, exist_ok=True)
         with open(os.path.join(enc_dir, "args.json"), "w") as f:

@@ -154,8 +154,28 @@ def group_norm32(p: Dict, x: torch.Tensor, num_groups: int = 32,
                  eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm(32, C) computed in float32 (float64 for an fp64 x), cast
     back to x.dtype."""
+    return group_norm32_from_stats(p, x, *_group_stats(x, num_groups, eps))
+
+
+def group_sums(x: torch.Tensor, num_groups: int = 32):
+    """Per-group (sum, sum of squares) `[B, g]` of `[B, H, W, C]` in
+    `_stats_dtype(x)`: the statistics a plane sharded over several ranks
+    adds up across them (`models/unet.py`)."""
     *lead, H, W, C = x.shape
-    mean, rstd = _group_stats(x, num_groups, eps)
+    if C % num_groups != 0:
+        raise ValueError(f"GroupNorm32 needs channels divisible by "
+                         f"{num_groups}, got {C}")
+    xg = x.reshape(*lead, H, W, num_groups, C // num_groups).to(
+        _stats_dtype(x))
+    dims = (-4, -3, -1)
+    return xg.sum(dim=dims), (xg * xg).sum(dim=dims)
+
+
+def group_norm32_from_stats(p: Dict, x: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor) -> torch.Tensor:
+    """`group_norm32`'s apply from given per-group (mean, rstd) `[B, g]`."""
+    *lead, H, W, C = x.shape
+    num_groups = mean.shape[-1]
     xg = x.reshape(*lead, H, W, num_groups, C // num_groups).to(
         _stats_dtype(x))
     xg = (xg - mean[..., None, None, :, None]) * rstd[..., None, None, :,
@@ -189,6 +209,14 @@ def _fold_coeffs(p: Dict, mean: torch.Tensor, rstd: torch.Tensor, C: int,
         A = A * one_p
         B = B * one_p + shift.to(A.dtype).reshape(A.shape)
     return A, B
+
+
+def group_norm32_film_silu_from_stats(p: Dict, x: torch.Tensor,
+                                      mean: torch.Tensor, rstd: torch.Tensor,
+                                      film=None) -> torch.Tensor:
+    """`group_norm32_film_silu` from given per-group (mean, rstd)."""
+    return apply_film_coeffs(x, *_fold_coeffs(p, mean, rstd, x.shape[-1],
+                                              film))
 
 
 def group_norm32_film_coeffs(p: Dict, x: torch.Tensor, film=None,

@@ -10,6 +10,13 @@ drawn from that generator alone, so a sample is the same whatever the
 batch it was drawn in.  The bits differ from JAX's threefry/rbg streams;
 tests hand both sides the same numpy noise through `noise=`.
 
+Several devices: data-parallel sampling needs nothing here, since a
+rank that draws a contiguous block of the samples (`cli/sample.py`)
+draws each from its own generators as above, so the split changes no
+sample.  With a spatial group (`make_sampler`) every rank draws each
+sample's whole noise from those generators and keeps its rows of each
+plane (`noise_view`), so the sharded chain is the whole one.
+
 The progressive loops keep the state after every `snapshot_every` steps
 (and after the last), stacked `[S, B, ...]`; their last snapshot is the
 plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
@@ -18,13 +25,14 @@ plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
+from ..parallel.halo import gather_plane, shard_plane
 from .gaussian import CondFn, DiffusionConfig, ModelFn, ddim_sample_step, \
     p_sample_step
 
@@ -51,9 +59,19 @@ def randn_per_sample(gens: Sequence[torch.Generator], channels: int,
     return Triplane(*planes)
 
 
-def _init(gens, batch, channels, sizes, noise, device, step_noise: bool):
-    """The initial x_T: `noise` if given, else drawn from `gens`, which
-    must hold one generator per sample where the steps draw noise too."""
+NoiseView = Optional[Callable[[Triplane], Triplane]]
+
+
+def _draw(gens, channels, sizes, device, view: NoiseView) -> Triplane:
+    t = randn_per_sample(gens, channels, sizes, device)
+    return t if view is None else view(t)
+
+
+def _init(gens, batch, channels, sizes, noise, device, step_noise: bool,
+          view: NoiseView = None):
+    """The initial x_T: `noise` if given, else drawn from `gens` (through
+    `view`), which must hold one generator per sample where the steps
+    draw noise too."""
     if (noise is None or step_noise) and (gens is None
                                           or len(gens) != batch):
         raise ValueError("pass one generator per sample (and, where the "
@@ -61,16 +79,16 @@ def _init(gens, batch, channels, sizes, noise, device, step_noise: bool):
                          "noise instead)")
     if noise is not None:
         return noise
-    return randn_per_sample(gens, channels, sizes, device)
+    return _draw(gens, channels, sizes, device, view)
 
 
 def _p_stepper(model, tables, cfg, gens, channels, sizes, clip_denoised,
-               device, cond_fn=None):
-    """step(x, t) of the ancestral chain: noise from `gens`, one draw per
-    step."""
+               device, cond_fn=None, view: NoiseView = None):
+    """step(x, t) of the ancestral chain: noise from `gens` (through
+    `view`), one draw per step."""
     def step(x, t):
         tb = torch.full((len(gens),), t, dtype=torch.int64, device=device)
-        step_noise = randn_per_sample(gens, channels, sizes, device)
+        step_noise = _draw(gens, channels, sizes, device, view)
         return p_sample_step(model, tables, cfg, x, tb, step_noise,
                              clip_denoised=clip_denoised, cond_fn=cond_fn)
     return step
@@ -78,11 +96,11 @@ def _p_stepper(model, tables, cfg, gens, channels, sizes, clip_denoised,
 
 def _ddim_stepper(model, tables, cfg, gens, batch, channels, sizes, eta,
                   clip_denoised, device, y0, mask, is_mask_t0,
-                  cond_fn=None):
+                  cond_fn=None, view: NoiseView = None):
     """step(x, t) of the DDIM chain; with eta == 0 it draws nothing."""
     def step(x, t):
         tb = torch.full((batch,), t, dtype=torch.int64, device=device)
-        step_noise = (randn_per_sample(gens, channels, sizes, device)
+        step_noise = (_draw(gens, channels, sizes, device, view)
                       if eta != 0.0 else None)
         return ddim_sample_step(model, tables, cfg, x, tb, step_noise,
                                 eta=eta, clip_denoised=clip_denoised, y0=y0,
@@ -96,14 +114,17 @@ def p_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                   channels: int, sizes: Tuple[int, int, int],
                   noise: Optional[Triplane] = None,
                   clip_denoised: bool = True, device="cuda",
-                  cond_fn: Optional[CondFn] = None) -> Triplane:
+                  cond_fn: Optional[CondFn] = None,
+                  noise_view: NoiseView = None) -> Triplane:
     """Ancestral DDPM sampling.  `noise` replaces the initial draw; the
     per-step noise always comes from `gens`.  `cond_fn` guides every
-    step (`condition_mean`)."""
+    step (`condition_mean`).  `noise_view` maps every draw (of `sizes`)
+    to the chain's state, e.g. this rank's rows of each plane."""
     T = tables["betas"].shape[0]
-    x = _init(gens, batch, channels, sizes, noise, device, step_noise=True)
+    x = _init(gens, batch, channels, sizes, noise, device, step_noise=True,
+              view=noise_view)
     step = _p_stepper(model, tables, cfg, gens, channels, sizes,
-                      clip_denoised, device, cond_fn)
+                      clip_denoised, device, cond_fn, noise_view)
     for t in range(T - 1, -1, -1):
         x = step(x, t)
     return x
@@ -117,17 +138,18 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                      y0: Optional[Triplane] = None,
                      mask: Optional[Triplane] = None,
                      is_mask_t0: bool = False,
-                     cond_fn: Optional[CondFn] = None) -> Triplane:
+                     cond_fn: Optional[CondFn] = None,
+                     noise_view: NoiseView = None) -> Triplane:
     """DDIM sampling over the (respaced) schedule, optionally masked (see
     `ddim_sample_step`) and guided (`cond_fn`, `condition_score`).  With
     eta == 0 the chain depends only on the initial noise and draws
-    nothing more."""
+    nothing more.  `noise_view` as in `p_sample_loop`."""
     T = tables["betas"].shape[0]
     x = _init(gens, batch, channels, sizes, noise, device,
-              step_noise=eta != 0.0)
+              step_noise=eta != 0.0, view=noise_view)
     step = _ddim_stepper(model, tables, cfg, gens, batch, channels, sizes,
                          eta, clip_denoised, device, y0, mask, is_mask_t0,
-                         cond_fn)
+                         cond_fn, noise_view)
     for t in range(T - 1, -1, -1):
         x = step(x, t)
     return x
@@ -227,13 +249,26 @@ def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
                  clip_denoised: bool = True, device="cuda",
                  y0: Optional[Triplane] = None,
                  mask: Optional[Triplane] = None,
-                 is_mask_t0: bool = False):
+                 is_mask_t0: bool = False, spatial_group=None):
     """Return `sample(seed, start, batch, channels, sizes, noise=None)`
     -> Triplane: the reverse chain for global samples start..start+batch-1
     (the port's `make_jit_sampler`).  `y0`/`mask` (DDIM only): masked
-    generation, mask = 1 keeps y0."""
+    generation, mask = 1 keeps y0.
+
+    `spatial_group` (JAX's `spatial_mesh=`; pair it with a model whose
+    `UNetConfig.spatial_group` is the same): the chain runs on this
+    rank's rows of each plane (dim 1) and every rank gets the whole
+    planes back; `noise`, `y0` and `mask` are whole."""
     if (y0 is not None or mask is not None) and not use_ddim:
         raise ValueError("masked generation (y0/mask) requires use_ddim")
+    view = None
+    if spatial_group is not None:
+        def view(t: Triplane) -> Triplane:
+            return t.map(lambda p: shard_plane(spatial_group, p))
+        if y0 is not None:
+            y0 = view(y0)
+        if mask is not None:     # [H, W, 1] planes: no batch dim
+            mask = mask.map(lambda p: shard_plane(spatial_group, p, 0))
     if use_ddim:
         loop = ddim_sample_loop
         kw = {"eta": eta, "y0": y0, "mask": mask, "is_mask_t0": is_mask_t0}
@@ -245,8 +280,13 @@ def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
                sizes: Tuple[int, int, int],
                noise: Optional[Triplane] = None) -> Triplane:
         gens = sample_generators(seed, start, batch, device)
-        return loop(model, tables, cfg, gens, batch, channels, sizes,
-                    noise=noise, clip_denoised=clip_denoised,
-                    device=device, **kw)
+        if view is not None and noise is not None:
+            noise = view(noise)
+        x = loop(model, tables, cfg, gens, batch, channels, sizes,
+                 noise=noise, clip_denoised=clip_denoised, device=device,
+                 noise_view=view, **kw)
+        if spatial_group is not None:
+            x = x.map(lambda p: gather_plane(spatial_group, p))
+        return x
 
     return sample

@@ -20,6 +20,17 @@ border fix-ups (`_colvar_vecs` / `_rowvar_vecs`).  Two forwards:
   (`torch.utils.checkpoint`, as JAX's `jax.checkpoint`).  K1 has no
   backward and refuses a call that autograd would record.
 
+With `UNetConfig.spatial_group` (a `parallel.DataGroup`) the sampler's
+forward runs on planes whose dim 1 is sharded over the group's ranks (x
+for xy and xz, y for yz), as JAX's `spatial_mesh`: the differentiable
+form's convs (K1 off, as JAX turns its fused conv off there) with every
+3x3 self conv a halo conv (`parallel/halo.py`), the rollout axis-means
+over a sharded axis summed over the ranks and the vectors a plane needs
+along its own unsharded axis gathered (one `all_reduce` per rollout
+conv), GroupNorm's (sum, sum of squares) summed over the ranks before the
+fold (one per triplane norm), the 2x upsampling with one neighbour row;
+average pooling stays local.  GSPMD inserts these collectives in JAX.
+
 Sampling numerics follow the JAX package's accelerator defaults: a bf16
 torso with `fast_norm` (fp32 GroupNorm statistics, apply in bf16); the
 chain state stays fp32.  Training takes the `args.json` dtype: fp32, or
@@ -48,7 +59,7 @@ where both are set).  The port's conditions are JAX's with
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -56,6 +67,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import nn
 from ..core.triplane import Triplane
 from ..ops.fused_conv import conv3x3_rollout_triplane, form_name
+from ..parallel import halo
+from ..parallel.mesh import all_reduce_many, gather_slot
 
 PLANES = ("xy", "xz", "yz")
 
@@ -72,6 +85,9 @@ class UNetConfig(NamedTuple):
     compute_dtype: torch.dtype = torch.float32
     fast_norm: bool = False
     use_checkpoint: bool = False      # training forward only
+    # a parallel.DataGroup over which dim 1 of every plane is sharded
+    # (the sampler's forward only); None: whole planes
+    spatial_group: Any = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -315,11 +331,79 @@ def _tconv_apply_rollout_train(p: Dict, t: Triplane) -> Triplane:
                     one(p["yz"], t.yz, m_xz_h, m_xy_h, False))
 
 
-def _tconv_apply_train(p: Dict, t: Triplane, rollout: bool) -> Triplane:
+def _global_sizes(t: Triplane, sg) -> Tuple[int, int, int]:
+    """(H, W, D) of the whole planes of which `t` holds this rank's
+    shards (dim 1 of each plane sharded over `sg`)."""
+    n = 1 if sg is None else sg.size
+    return t.xy.shape[1] * n, t.yz.shape[1] * n, t.xz.shape[2]
+
+
+def _rows_contrib(v3: torch.Tensor, n_rows: int, first: int,
+                  count: int) -> torch.Tensor:
+    """`_colvar_contrib` for rows `first..first+count-1` of `n_rows`:
+    `[B, L, 3, Co]` -> `[B, count, L, Co]`."""
+    idx = [0 if g == 0 else 2 if g == n_rows - 1 else 1
+           for g in range(first, first + count)]
+    return v3[:, :, torch.tensor(idx, device=v3.device)].permute(0, 2, 1, 3)
+
+
+def _tconv_apply_rollout_sharded(p: Dict, t: Triplane, sg) -> Triplane:
+    """`_tconv_apply_rollout_train` of planes sharded on dim 1 over `sg`:
+    the axis-means over a sharded axis are summed over the ranks, the
+    means along a sharded axis gathered whole (one `all_reduce` for the
+    six), so every plane gets the vectors of the unsharded conv; the self
+    parts are halo convs (one more `all_reduce`); the col-varying
+    contributions take the plane's global row positions, the row-varying
+    ones this shard's rows of the whole vector."""
+    C = t.channels
+    H, W, D = _global_sizes(t, sg)
+    f32 = torch.float32
+    red = all_reduce_many(sg, [
+        gather_slot(sg, t.yz.mean(dim=-2, dtype=f32)),   # [B, w, C]
+        gather_slot(sg, t.xz.mean(dim=-2, dtype=f32)),   # [B, h, C]
+        gather_slot(sg, t.xy.mean(dim=-2, dtype=f32)),   # [B, h, C]
+        t.yz.sum(dim=-3, dtype=f32) / W,                 # [B, D, C]
+        t.xy.sum(dim=-3, dtype=f32) / H,                 # [B, W, C]
+        t.xz.sum(dim=-3, dtype=f32) / H])                # [B, D, C]
+    whole = [torch.cat(list(v.unbind(0)), dim=1) for v in red[:3]]
+    m_yz_d, m_xz_d, m_xy_w, m_yz_w, m_xy_h, m_xz_h = [
+        v.to(t.dtype) for v in whole + red[3:]]
+    selfs = halo.halo_conv2d_many(
+        [{"w": p[k]["w"][:, :, :C]} for k in PLANES], list(t), sg)
+
+    def one(pp, y, col_vec, row_vec, col_first: bool, n_rows: int):
+        w = pp["w"]
+        cs, rs = (C, 2 * C) if col_first else (2 * C, C)
+        h = y.shape[1]
+        first = sg.rank * h
+        y = y + _rows_contrib(_colvar_vecs(col_vec, w[:, :, cs:cs + C]),
+                              n_rows, first, h)
+        y = y + _spread(_rowvar_vecs(row_vec, w[:, :, rs:rs + C])[
+            :, first:first + h], y.shape[2])
+        if "b" in pp:
+            y = y + pp["b"].to(y.dtype)
+        return y
+
+    return Triplane(one(p["xy"], selfs[0], m_yz_d, m_xz_d, True, H),
+                    one(p["xz"], selfs[1], m_yz_w, m_xy_w, False, H),
+                    one(p["yz"], selfs[2], m_xz_h, m_xy_h, False, W))
+
+
+def _tconv_apply_train(p: Dict, t: Triplane, rollout: bool,
+                       sg=None) -> Triplane:
+    is3 = p["xy"]["w"].shape[0] == 3
     if rollout:
-        if p["xy"]["w"].shape[0] == 3 and min(t.sizes) >= 2:
+        if is3 and min(_global_sizes(t, sg)) >= 2:
+            if sg is not None:
+                return _tconv_apply_rollout_sharded(p, t, sg)
             return _tconv_apply_rollout_train(p, t)
+        if sg is not None:
+            raise ValueError("spatial sharding needs planes of at least 2 "
+                             "on each side at every level")
         t = _rollout_cat(t)
+    if sg is not None and is3:
+        return Triplane(*halo.halo_conv2d_many([p[k] for k in PLANES],
+                                               list(t), sg))
     return Triplane(*[nn.conv2d(p[k], x) for k, x in zip(PLANES, t)])
 
 
@@ -327,11 +411,34 @@ def _tconv_apply_train(p: Dict, t: Triplane, rollout: bool) -> Triplane:
 # Norms and ResBlock
 # ---------------------------------------------------------------------------
 
-def _tnorm_apply(p: Dict, t: Triplane) -> Triplane:
+def _tnorm_stats_sharded(t: Triplane, sg, eps: float = 1e-5):
+    """Per-plane GroupNorm32 (mean, rstd) `[B, g]` of planes sharded over
+    `sg`: each plane's (sum, sum of squares) summed over the ranks (one
+    `all_reduce` for the three planes), var = E[x^2] - mean^2 clamped at
+    0."""
+    sums = all_reduce_many(sg, [s for x in t for s in nn.group_sums(x)])
+    out = []
+    for i, x in enumerate(t):
+        n = x.shape[1] * sg.size * x.shape[2] * (x.shape[3] // 32)
+        mean = sums[2 * i] / n
+        var = sums[2 * i + 1] / n - mean * mean
+        out.append((mean, torch.rsqrt(var.clamp_min(0.0) + eps)))
+    return out
+
+
+def _tnorm_apply(p: Dict, t: Triplane, sg=None) -> Triplane:
+    if sg is not None:
+        return Triplane(*[nn.group_norm32_from_stats(p[k], x, *st)
+                          for k, x, st in zip(PLANES, t,
+                                              _tnorm_stats_sharded(t, sg))])
     return Triplane(*[nn.group_norm32(p[k], x) for k, x in zip(PLANES, t)])
 
 
-def _tnorm_silu_fast(p: Dict, t: Triplane, film=None) -> Triplane:
+def _tnorm_silu_fast(p: Dict, t: Triplane, film=None, sg=None) -> Triplane:
+    if sg is not None:
+        return Triplane(*[
+            nn.group_norm32_film_silu_from_stats(p[k], x, *st, film=film)
+            for k, x, st in zip(PLANES, t, _tnorm_stats_sharded(t, sg))])
     return Triplane(*[nn.group_norm32_film_silu(p[k], x, film)
                       for k, x in zip(PLANES, t)])
 
@@ -403,12 +510,17 @@ def _resblock_apply_stats(p: Dict, t: Triplane, t_stats: Optional[Dict],
 
 def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
                     use_scale_shift: bool, rollout: bool,
-                    fast_norm: bool, train: bool = False) -> Triplane:
-    """One resblock; with `train` its 3x3 convs are the differentiable
-    `_tconv_apply_train` (and the opt-in configurations, which need K1′,
-    do not apply), else K1."""
-    conv = _tconv_apply_train if train else _tconv_apply
-    if not train and _use_fused_act():
+                    fast_norm: bool, train: bool = False,
+                    sg=None) -> Triplane:
+    """One resblock; with `train` (or planes sharded over `sg`) its 3x3
+    convs are the differentiable `_tconv_apply_train` (and the opt-in
+    configurations, which need K1′, do not apply), else K1."""
+    if train or sg is not None:
+        def conv(pp, tt, ro):
+            return _tconv_apply_train(pp, tt, ro, sg)
+    else:
+        conv = _tconv_apply
+    if not train and sg is None and _use_fused_act():
         # norm + FiLM + SiLU as coefficients applied inside K1′
         a1 = _tnorm_coeffs(p["in_norm"], t)
         h = _tconv_apply(p["in_conv"], t, rollout, act=a1)
@@ -426,9 +538,9 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
         return h + skip
 
     if fast_norm:
-        h = _tnorm_silu_fast(p["in_norm"], t)
+        h = _tnorm_silu_fast(p["in_norm"], t, sg=sg)
     else:
-        h = _tnorm_apply(p["in_norm"], t).map(nn.silu)
+        h = _tnorm_apply(p["in_norm"], t, sg).map(nn.silu)
     h = conv(p["in_conv"], h, rollout)
 
     emb_out = nn.linear(p["emb"], nn.silu(emb)).to(h.dtype)
@@ -436,16 +548,17 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
     if use_scale_shift:
         scale, shift = torch.chunk(emb_out, 2, dim=-1)
         if fast_norm:
-            h = _tnorm_silu_fast(p["out_norm"], h, film=(scale, shift))
+            h = _tnorm_silu_fast(p["out_norm"], h, film=(scale, shift),
+                                 sg=sg)
         else:
-            h = _tnorm_apply(p["out_norm"], h)
+            h = _tnorm_apply(p["out_norm"], h, sg)
             h = h.map(lambda v: v * (1.0 + scale) + shift).map(nn.silu)
     else:
         h = h.map(lambda v: v + emb_out)
         if fast_norm:
-            h = _tnorm_silu_fast(p["out_norm"], h)
+            h = _tnorm_silu_fast(p["out_norm"], h, sg=sg)
         else:
-            h = _tnorm_apply(p["out_norm"], h).map(nn.silu)
+            h = _tnorm_apply(p["out_norm"], h, sg).map(nn.silu)
     h = conv(p["out_conv"], h, rollout)
 
     skip = conv(p["skip"], t, False) if "skip" in p else t
@@ -473,7 +586,9 @@ def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
                timesteps: torch.Tensor) -> Triplane:
     """The sampler's forward, through K1.  x: Triplane of `[B, ., .,
     C_in]`; timesteps `[B]`.  Returns out_channels planes of the input's
-    sizes, in x's dtype."""
+    sizes, in x's dtype.  With `cfg.spatial_group`, x holds this rank's
+    shards (dim 1 of each plane) and so does the result; the convs are
+    then the differentiable form's (no K1)."""
     return _forward(params, cfg, x, timesteps, train=False)
 
 
@@ -481,8 +596,22 @@ def unet_train_apply(params: Dict, cfg: UNetConfig, x: Triplane,
                      timesteps: torch.Tensor) -> Triplane:
     """The training forward: the same function as `unet_apply`,
     differentiable in `params` and `x` (no K1, no opt-in configuration;
-    `cfg.use_checkpoint` recomputes each resblock in the backward)."""
+    `cfg.use_checkpoint` recomputes each resblock in the backward).  Whole
+    planes only: the spatial forward samples."""
+    if cfg.spatial_group is not None:
+        raise ValueError("the spatially sharded forward is the sampler's "
+                         "(unet_apply); it has no backward")
     return _forward(params, cfg, x, timesteps, train=True)
+
+
+def _check_spatial(cfg: UNetConfig, x: Triplane) -> None:
+    """Each shard's rows must halve at every down level."""
+    m = 2 ** (len(cfg.channel_mult) - 1)
+    for name, v in (("xy/xz", x.xy), ("yz", x.yz)):
+        if v.shape[1] % m:
+            raise ValueError(
+                f"spatial sharding: a {name} shard of {v.shape[1]} rows "
+                f"does not halve {len(cfg.channel_mult) - 1} times")
 
 
 def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
@@ -493,17 +622,20 @@ def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
         torch.promote_types(te["l1"]["w"].dtype, torch.float32)))
     emb = nn.linear(te["l2"], nn.silu(nn.linear(te["l1"], emb)))
 
+    sg = cfg.spatial_group
+    if sg is not None:
+        _check_spatial(cfg, x)
     h = x.to(cfg.compute_dtype)
     h = _tconv_apply(params["in_conv"], h, rollout=False)   # 1x1: no K1
 
     # the (sum, sum of squares) of h where a chained block made it; None
     # wherever h changed outside a chained conv
-    use_stats = not train and _stats_chain_on(cfg)
+    use_stats = not train and sg is None and _stats_chain_on(cfg)
     h_stats = None
 
     def resblock(bp, t, e):
         return _resblock_apply(bp, t, e, cfg.use_scale_shift_norm,
-                               cfg.rollout, cfg.fast_norm, train)
+                               cfg.rollout, cfg.fast_norm, train, sg)
 
     def block(bp, t, t_stats):
         if use_stats and _stats_block_ok(bp, t, cfg.rollout):
@@ -536,16 +668,17 @@ def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
         for bp in blocks:
             h, h_stats = block(bp, h, h_stats)
         if level < n_levels - 1:
-            h = h.map(nn.upsample2x_bilinear)
+            h = (h.map(nn.upsample2x_bilinear) if sg is None else
+                 Triplane(*halo.upsample2x_bilinear(list(h), sg)))
             h_stats = None
 
     if h_stats is not None:
         h = _act_triplane(h, _tnorm_coeffs_from_stats(
             params["out"]["norm"], h_stats, h.sizes))
     elif cfg.fast_norm:
-        h = _tnorm_silu_fast(params["out"]["norm"], h)
+        h = _tnorm_silu_fast(params["out"]["norm"], h, sg=sg)
     else:
-        h = _tnorm_apply(params["out"]["norm"], h).map(nn.silu)
+        h = _tnorm_apply(params["out"]["norm"], h, sg).map(nn.silu)
     h = _tconv_apply(params["out"]["conv"], h, rollout=False)
     return h.to(x.dtype)
 

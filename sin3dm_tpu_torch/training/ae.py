@@ -22,6 +22,15 @@ unbroken one would; tests pass JAX's draws in (`offsets=`).  Checkpoints
 params, the optimiser state in JAX's leaf layout
 (`core.checkpoint.adamw_tree(chained=True)`) and the step.
 
+Data parallel (`group=`, a `parallel.DataGroup`; JAX's `mesh=`): every
+rank takes the same windows and keeps its equal, contiguous share of the
+batch's rows; the encoder runs replicated.  Each loss term is this
+rank's sum over the global count (the masked texture loss's over the
+mask's count summed over the ranks, since a mean of per-rank masked
+means is not the global one where the mask is uneven), and one
+`all_reduce` sums the flat gradient and the terms.  Rank 0 alone logs
+and writes checkpoints.
+
 Decode.  Dense grids and voxel files, and the mesh path: a dense int8 sdf
 grid on the device, sent to the host as the sparse near-surface wire,
 marching cubes, decimation, UV atlas and raster on the host, texel
@@ -59,6 +68,7 @@ from ..geometry import meshio, meshproc, native, uvatlas
 from ..models import autoencoder as ae
 from ..ops import pack_params
 from ..ops import sparse_grid as _sg
+from ..parallel.mesh import all_reduce, all_reduce_many, local_rows
 from . import adamw
 
 WEIGHT_DECAY = 0.01
@@ -215,21 +225,30 @@ def load_ae_data(npz_path: str, cfg: AETrainerConfig, device,
 # Losses
 # ---------------------------------------------------------------------------
 
-def sdf_loss_fn(kind: str, pred: torch.Tensor,
-                gt: torch.Tensor) -> torch.Tensor:
+def sdf_loss_fn(kind: str, pred: torch.Tensor, gt: torch.Tensor,
+                count: Optional[int] = None) -> torch.Tensor:
+    """The mean error, or its sum over `count` elements (a rank's part of
+    a mean over several ranks)."""
     if kind == "l1":
-        return (pred - gt).abs().mean()
-    if kind == "weightedl1":
+        e = (pred - gt).abs()
+    elif kind == "weightedl1":
         weight = 1.0 + 0.5 * torch.sign(gt) * torch.sign(gt - pred)
-        return ((pred - gt).abs() * weight).mean()
-    raise NotImplementedError(kind)
+        e = (pred - gt).abs() * weight
+    else:
+        raise NotImplementedError(kind)
+    return e.mean() if count is None else e.sum() / count
 
 
 def masked_tex_loss_fn(kind: str, pred: torch.Tensor, gt: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the masked rows only; 0 where the mask is empty."""
+                       mask: torch.Tensor,
+                       n_masked: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Mean over the masked rows only; 0 where the mask is empty.  With
+    `n_masked` (the masked rows of every rank), this rank's sum over
+    that count instead."""
     m = mask.to(pred.dtype)[:, None]
-    n = torch.clamp(m.sum() * pred.shape[-1], min=1.0)
+    n = torch.clamp((m.sum() if n_masked is None else n_masked)
+                    * pred.shape[-1], min=1.0)
     if kind == "l1":
         e = (pred - gt).abs()
     elif kind == "l2":
@@ -371,14 +390,20 @@ def sample_batch(tcfg: AETrainerConfig, data: AEData, use_tex: bool,
 
 def ae_losses(params: Dict, acfg: ae.AEConfig, tcfg: AETrainerConfig,
               data: AEData, threshold: float, pts, gt_sdf,
-              gt_tex) -> Dict[str, torch.Tensor]:
-    """The loss terms of one batch and their sum under "loss"."""
+              gt_tex, group=None) -> Dict[str, torch.Tensor]:
+    """The loss terms of one batch and their sum under "loss".  With a
+    data `group`, the rows are this rank's share and each term is its
+    part of the whole batch's (see the module doc)."""
     pred = ae.forward(params, acfg, data.input_grid, pts, data.aabb)
-    losses = {"sdf_loss": sdf_loss_fn(tcfg.sdf_loss, pred[..., :1], gt_sdf)}
+    count = None if group is None else pts.shape[0] * group.size
+    losses = {"sdf_loss": sdf_loss_fn(tcfg.sdf_loss, pred[..., :1], gt_sdf,
+                                      count)}
     if acfg.use_tex:
         tex_thr = (1.0 if tcfg.sdf_renorm else threshold) \
             * tcfg.tex_threshold_ratio
         mask = gt_sdf[:, 0].abs() < tex_thr
+        n_masked = None if group is None else all_reduce(
+            group, mask.sum().to(pred.dtype))
         pred_tex = pred[..., 1:]
         parts = ({"rgb_loss": slice(0, 3), "mr_loss": slice(3, 5),
                   "normal_loss": slice(5, None)}
@@ -386,33 +411,48 @@ def ae_losses(params: Dict, acfg: ae.AEConfig, tcfg: AETrainerConfig,
         for k, sl in parts.items():
             losses[k] = masked_tex_loss_fn(
                 tcfg.tex_loss, pred_tex[:, sl], gt_tex[:, sl],
-                mask) * tcfg.tex_weight
+                mask, n_masked) * tcfg.tex_weight
     losses["loss"] = sum(losses.values())
     return losses
 
 
 def compute_grads(state: AETrainState, acfg: ae.AEConfig,
                   tcfg: AETrainerConfig, data: AEData, threshold: float,
-                  offsets):
+                  offsets, group=None):
     """(detached loss terms, flat gradient of the total) at the state's
-    parameters on the batch at `offsets`."""
+    parameters on the batch at `offsets`; with a data `group`, on this
+    rank's rows, the terms and the gradient then summed over the ranks
+    (one `all_reduce`)."""
     pts, sdf, tex = sample_batch(tcfg, data, acfg.use_tex, offsets)
+    if group is not None:
+        pts, sdf = local_rows(group, pts), local_rows(group, sdf)
+        tex = None if tex is None else local_rows(group, tex)
     terms = ae_losses(state.params, acfg, tcfg, data, threshold, pts, sdf,
-                      tex)
+                      tex, group)
     leaves = [v for _, v in ckpt.leaves_with_paths(state.params)]
     grads = torch.autograd.grad(terms["loss"], leaves, allow_unused=True)
     g = torch.cat([(torch.zeros_like(v) if gr is None else gr).reshape(-1)
                    for v, gr in zip(leaves, grads)])
-    return {k: v.detach() for k, v in terms.items()}, g
+    terms = {k: v.detach() for k, v in terms.items()}
+    if group is not None:
+        keys = list(terms)
+        red = all_reduce_many(group, [g] + [terms[k] for k in keys])
+        g, terms = red[0], dict(zip(keys, red[1:]))
+    return terms, g
 
 
 def make_train_step(acfg: ae.AEConfig, tcfg: AETrainerConfig,
-                    threshold: float):
+                    threshold: float, group=None):
     """`step_fn(state, data, seed, offsets=None) -> metrics`: K =
     steps_per_call steps, updating `state` in place; `offsets` (K pairs
     of (grid, near-surface) offset lists) replaces the draws.  Returns the
-    last step's loss terms as device tensors."""
+    last step's loss terms as device tensors.  With a data `group` (JAX's
+    `mesh=`) the batch's rows split over the ranks (see the module doc);
+    the batch must divide."""
     K = max(tcfg.steps_per_call, 1)
+    if group is not None and tcfg.enc_batch_size % group.size:
+        raise ValueError(f"enc_batch_size {tcfg.enc_batch_size} does not "
+                         f"divide over {group.size} ranks")
 
     def step_fn(state: AETrainState, data: AEData, seed: int,
                 offsets=None) -> Dict[str, torch.Tensor]:
@@ -420,7 +460,7 @@ def make_train_step(acfg: ae.AEConfig, tcfg: AETrainerConfig,
             offs = (offsets[i] if offsets is not None
                     else draw_offsets(tcfg, data, seed, state.step))
             terms, g = compute_grads(state, acfg, tcfg, data, threshold,
-                                     offs)
+                                     offs, group)
             apply_grads(state, g, tcfg)
             state.step += 1
         return terms
@@ -522,8 +562,11 @@ def _u16_to_device(a: np.ndarray, device) -> torch.Tensor:
 
 class AETrainer:
     def __init__(self, log_dir: str, acfg: ae.AEConfig, device,
-                 tcfg: Optional[AETrainerConfig] = None):
+                 tcfg: Optional[AETrainerConfig] = None, group=None):
         self.log_dir = log_dir
+        # a data group trains data-parallel; rank 0 logs and saves
+        self.group = group
+        self.is_main = group is None or group.rank == 0
         self.acfg = acfg
         self.tcfg = tcfg or AETrainerConfig()
         self.device = torch.device(device)
@@ -634,12 +677,14 @@ class AETrainer:
             st.step = resumed[2]
             logger.log(f"AE resume from iter {st.step}")
         step_fn = make_train_step(self.acfg, self.tcfg,
-                                  self.meta["threshold"])
-        try:
-            from tensorboardX import SummaryWriter
-            tb = SummaryWriter(os.path.join(self.log_dir, "tblog"))
-        except ImportError:
-            tb = None
+                                  self.meta["threshold"], self.group)
+        tb = None
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
+                tb = SummaryWriter(os.path.join(self.log_dir, "tblog"))
+            except ImportError:
+                pass
         from ..core.profiling import step_annotation
         eval_every = eval_every or max(n_iters // 5, 1)
         save_every = save_every or eval_every
@@ -647,7 +692,7 @@ class AETrainer:
         for i in range(st.step, n_iters, K):
             with step_annotation("ae_train", i):
                 metrics = step_fn(st, self.data, seed)
-            if i % log_every == 0:
+            if i % log_every == 0 and self.is_main:
                 vals = {k: float(v) for k, v in metrics.items()}
                 for k, v in vals.items():
                     logger.logkv(f"ae/{k}", v)
@@ -658,14 +703,19 @@ class AETrainer:
             if tb is not None and (i == 0 or (i + K) % eval_every < K):
                 self.set_params(st.tree(st.flat))
                 self._featmap_figures(tb, i)
-            if (i + K) % save_every < K and i + K < n_iters:
+            if (i + K) % save_every < K and i + K < n_iters \
+                    and self.is_main:
                 self.save_ckpt("latest")
+        if tb is not None:
+            tb.close()
         self.set_params(st.tree(st.flat))
         eval_stat = self.evaluate()
-        with open(os.path.join(self.log_dir, "eval_stat.json"), "w") as f:
-            json.dump(eval_stat, f, indent=2)
         st.step = n_iters
-        self.save_ckpt("final")
+        if self.is_main:
+            with open(os.path.join(self.log_dir, "eval_stat.json"),
+                      "w") as f:
+                json.dump(eval_stat, f, indent=2)
+            self.save_ckpt("final")
         return eval_stat
 
     def _featmap_figures(self, tb, step: int) -> None:

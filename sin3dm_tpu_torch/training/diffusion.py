@@ -21,6 +21,15 @@ buffer):
 - Randomness: step k's timesteps and noise are drawn from a generator
   seeded from (seed, k) alone (`core.rng.step_generator`), so a resumed
   run draws what an unbroken one would.  Tests pass t and noise in.
+- Data parallel (`group=`, a `parallel.DataGroup`; JAX's `mesh=`): each
+  rank holds its equal share of the batch and draws the step's whole
+  (t, noise) from the generator of (seed, k), keeping its rows; its loss
+  is sum(loss w) over its rows / the global batch, and one `all_reduce`
+  sums the flat gradient and gathers the per-example terms.  Every rank
+  then takes the same grad norm, NaN guard, AdamW and EMA from the same
+  sums, and updates the loss-aware sampler from the whole batch's (t,
+  loss): the parameters stay bit-identical across the ranks.  Rank 0
+  alone writes logs and checkpoints and runs the sample hook.
 - Checkpoints: `ema_{rate}_{step:06d}.pt` per EMA rate and
   `opt{step:06d}.pt` in JAX's container and leaf layout (the optimiser
   state as `core.checkpoint.adamw_tree`); resume loads the parameters
@@ -40,9 +49,10 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core import logger
 from ..core.rng import step_generator
-from ..core.triplane import Triplane, randn_like
+from ..core.triplane import Triplane
 from ..diffusion import resample
 from ..diffusion.gaussian import DiffusionConfig, training_losses
+from ..parallel.mesh import all_reduce_many, gather_slot, local_rows
 from . import adamw
 
 
@@ -108,16 +118,21 @@ def init_train_state(params: Dict, cfg: DiffusionTrainerConfig,
 
 def draw_step_inputs(tcfg: DiffusionTrainerConfig, state: TrainState,
                      batch: Triplane, seed: int, step: int,
-                     num_timesteps: int) -> Tuple[torch.Tensor, Triplane]:
-    """(t, noise) of global step `step`: drawn from the generator of
-    (seed, step) on the batch's device, t first."""
+                     num_timesteps: int,
+                     n: Optional[int] = None) -> Tuple[torch.Tensor,
+                                                       Triplane]:
+    """(t, noise) of global step `step` for `n` examples (default the
+    batch's): drawn from the generator of (seed, step) on the batch's
+    device, t first."""
     g = step_generator(seed, step, batch.xy.device)
-    B = batch.xy.shape[0]
+    B = batch.xy.shape[0] if n is None else n
     if tcfg.schedule_sampler == "loss-second-moment":
         t, _ = resample.sample_loss_aware(g, B, state.sampler_state)
     else:
         t, _ = resample.sample_uniform(g, B, num_timesteps)
-    return t, randn_like(g, batch)
+    return t, batch.map(lambda p: torch.randn(
+        (B,) + tuple(p.shape[1:]), generator=g, dtype=p.dtype,
+        device=g.device))
 
 
 @torch.no_grad()
@@ -138,34 +153,55 @@ def apply_grads(state: TrainState, g: torch.Tensor,
 
 def compute_grads(state: TrainState, model_apply: Callable, tables,
                   dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
-                  batch: Triplane, t: torch.Tensor, noise: Triplane):
+                  batch: Triplane, t: torch.Tensor, noise: Triplane,
+                  group=None):
     """(loss terms, importance weights, flat gradient of the weighted mean
     loss) at the state's parameters, from the given timesteps and noise.
     `model_apply(params, x_t, t_model)` must be differentiable
-    (`unet_train_apply`)."""
+    (`unet_train_apply`).  With a data `group`, batch, t and noise are
+    this rank's rows: the gradient is the whole batch's, summed over the
+    ranks, and the terms and weights are gathered for the whole batch,
+    in rank order (one `all_reduce`)."""
     if tcfg.schedule_sampler == "loss-second-moment":
         weights = resample.loss_aware_weights(state.sampler_state, t)
     else:
         weights = torch.ones(t.shape, dtype=torch.float32, device=t.device)
     terms = training_losses(lambda x, tt: model_apply(state.params, x, tt),
                             tables, dcfg, batch, t, noise)
-    loss = (terms["loss"] * weights).mean()
+    if group is None:
+        loss = (terms["loss"] * weights).mean()
+    else:
+        loss = (terms["loss"] * weights).sum() / (t.shape[0] * group.size)
     leaves = [v for _, v in ckpt.leaves_with_paths(state.params)]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     g = torch.cat([(torch.zeros_like(v) if gr is None else gr).reshape(-1)
                    for v, gr in zip(leaves, grads)])
-    return {k: v.detach() for k, v in terms.items()}, weights, g
+    terms = {k: v.detach() for k, v in terms.items()}
+    if group is not None:
+        keys = sorted(terms)
+        red = all_reduce_many(group, [g] + [
+            gather_slot(group, v) for v in [terms[k] for k in keys]
+            + [weights]])
+        g, weights = red[0], red[-1].reshape(-1)
+        terms = {k: v.reshape(-1) for k, v in zip(keys, red[1:-1])}
+    return terms, weights, g
 
 
 def train_step(state: TrainState, model_apply: Callable, tables,
                dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
                batch: Triplane, t: torch.Tensor,
-               noise: Triplane) -> Dict[str, torch.Tensor]:
-    """One step from the given timesteps and noise; updates `state` in
-    place.  Returns the step's metrics as device tensors: grad_norm,
-    skipped, and per example t, loss_w and the loss terms."""
+               noise: Triplane, group=None) -> Dict[str, torch.Tensor]:
+    """One step from the given timesteps and noise (the whole batch's;
+    with a data `group`, `batch` is this rank's rows and the rank takes
+    its rows of t and noise); updates `state` in place.  Returns the
+    step's metrics as device tensors: grad_norm, skipped, and per example
+    of the whole batch t, loss_w and the loss terms."""
+    t_loc, noise_loc = t, noise
+    if group is not None:
+        t_loc = local_rows(group, t)
+        noise_loc = noise.map(lambda p: local_rows(group, p))
     terms, weights, g = compute_grads(state, model_apply, tables, dcfg,
-                                      tcfg, batch, t, noise)
+                                      tcfg, batch, t_loc, noise_loc, group)
     gnorm, ok = apply_grads(state, g, tcfg)
     if tcfg.schedule_sampler == "loss-second-moment":
         state.sampler_state = resample.update_sampler_state(
@@ -176,13 +212,16 @@ def train_step(state: TrainState, model_apply: Callable, tables,
 
 
 def make_train_step(model_apply: Callable, tables, dcfg: DiffusionConfig,
-                    tcfg: DiffusionTrainerConfig):
+                    tcfg: DiffusionTrainerConfig, group=None):
     """`step_fn(state, batch, seed, inputs=None) -> metrics`: K =
-    steps_per_call steps.  `inputs` (K pairs of (t, noise)) replaces the
-    draws.  Metrics as JAX's fused call gives them: the last step's
-    scalars, every step's per-example values concatenated."""
+    steps_per_call steps.  `inputs` (K pairs of (t, noise), the whole
+    batch's) replaces the draws.  Metrics as JAX's fused call gives them:
+    the last step's scalars, every step's per-example values
+    concatenated.  With a data `group` (JAX's `mesh=`), `batch` is this
+    rank's equal share of the global batch (see the module doc)."""
     T = int(tables["betas"].shape[0])
     K = max(tcfg.steps_per_call, 1)
+    size = 1 if group is None else group.size
 
     def step_fn(state: TrainState, batch: Triplane, seed: int,
                 inputs: Optional[Sequence[Tuple[torch.Tensor,
@@ -190,9 +229,10 @@ def make_train_step(model_apply: Callable, tables, dcfg: DiffusionConfig,
         per = []
         for i in range(K):
             t, noise = inputs[i] if inputs is not None else \
-                draw_step_inputs(tcfg, state, batch, seed, state.step, T)
+                draw_step_inputs(tcfg, state, batch, seed, state.step, T,
+                                 n=batch.xy.shape[0] * size)
             per.append(train_step(state, model_apply, tables, dcfg, tcfg,
-                                  batch, t, noise))
+                                  batch, t, noise, group))
         return {k: (torch.cat([m[k] for m in per]) if v.dim() else v)
                 for k, v in per[-1].items()}
 
@@ -236,12 +276,16 @@ def find_resume_step(log_dir: str, ema_rate: float) -> int:
 class DiffusionTrainLoop:
     """The host loop: KV and TensorBoard logging, checkpoints, the
     periodic sample hook, resume.  With `DIFFUSION_TRAINING_TEST` set in
-    the environment, `run` returns after the first save."""
+    the environment, `run` returns after the first save.  With a data
+    `group`, `batch` is this rank's share; rank 0 alone writes
+    TensorBoard, checkpoints and runs the sample hook."""
 
     def __init__(self, model_apply: Callable, params: Dict, tables,
                  dcfg: DiffusionConfig, tcfg: DiffusionTrainerConfig,
                  log_dir: str, batch: Triplane, sample_hook=None,
-                 resume: bool = False):
+                 resume: bool = False, group=None):
+        self.group = group
+        self.is_main = group is None or group.rank == 0
         self.model_apply = model_apply
         self.tables = tables
         self.dcfg = dcfg
@@ -255,12 +299,15 @@ class DiffusionTrainLoop:
         os.makedirs(log_dir, exist_ok=True)
         if resume:
             self._try_resume()
-        self.step_fn = make_train_step(model_apply, tables, dcfg, tcfg)
-        try:
-            from tensorboardX import SummaryWriter
-            self.tb = SummaryWriter(os.path.join(log_dir, "tblog"))
-        except ImportError:
-            self.tb = None
+        self.step_fn = make_train_step(model_apply, tables, dcfg, tcfg,
+                                       group)
+        self.tb = None
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
+                self.tb = SummaryWriter(os.path.join(log_dir, "tblog"))
+            except ImportError:
+                pass
 
     def _try_resume(self) -> None:
         """Load the latest EMA (as the parameters and every EMA) and, where
@@ -314,7 +361,7 @@ class DiffusionTrainLoop:
                                        global_step=last)
             if last % self.tcfg.log_interval < K:
                 logger.dumpkvs()
-            if self.sample_hook and step % 5000 < K:
+            if self.sample_hook and self.is_main and step % 5000 < K:
                 self.sample_hook(self, step)
             step += K
             if step > 0 and step % self.tcfg.save_interval < K:
@@ -326,6 +373,8 @@ class DiffusionTrainLoop:
             self.save(n_steps)
 
     def save(self, step: int) -> None:
+        if not self.is_main:
+            return
         for rate, ema in zip(self.tcfg.ema_rates, self.state.ema):
             path = os.path.join(self.log_dir, ema_checkpoint_name(rate, step))
             ckpt.save_tree(path, self.state.tree(ema))

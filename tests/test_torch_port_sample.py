@@ -116,8 +116,9 @@ def test_voxels_match_jax_decode_voxel(tmp_path, monkeypatch):
 
 
 # the modules of the stats-chain, fused-act, --inpaint, mesh, training,
-# data-preparation, evaluation and serving paths, named so that the walk
-# cannot miss them; none may bring in jax, the JAX package, cv2 or PIL
+# data-preparation, evaluation, serving and multi-device paths, named so
+# that the walk cannot miss them; none may bring in jax, the JAX package,
+# cv2 or PIL
 CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            "sin3dm_tpu_torch.models.unet",
            "sin3dm_tpu_torch.diffusion.gaussian",
@@ -149,12 +150,19 @@ CHANGED = {"sin3dm_tpu_torch.core.nn", "sin3dm_tpu_torch.ops.fused_conv",
            # serving and the reference's checkpoints
            "sin3dm_tpu_torch.cli.app",
            "sin3dm_tpu_torch.cli.import_torch_ckpt",
-           "sin3dm_tpu_torch.compat.torch_import"}
+           "sin3dm_tpu_torch.compat.torch_import",
+           # several devices
+           "sin3dm_tpu_torch.parallel", "sin3dm_tpu_torch.parallel.mesh",
+           "sin3dm_tpu_torch.parallel.halo"}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port in a fresh interpreter; then two ranks
+    started by the port's `spawn` (processes of their own) import the
+    `parallel` package and assert the same of theirs."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.path.insert(0, 'tests')\n"
         "import sin3dm_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -165,11 +173,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'sin3dm_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
-        "print('ok', len(names))\n")
+        "import torch_port_parallel_ranks as r\n"
+        "from sin3dm_tpu_torch.parallel import spawn\n"
+        "loaded = spawn(r.audit, 2, device='cpu')\n"
+        "assert all('sin3dm_tpu_torch.parallel.halo' in m for m in loaded)\n"
+        "print('ok', len(names), len(loaded))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    last = out.stdout.splitlines()[-1].split()
+    assert last[0] == "ok" and last[2] == "2", out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -197,11 +210,23 @@ def test_cli_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--sample_devices", "2"], "data-parallel"),
+    (["--sample_devices", "2", "--sample_spatial", "2"], "mutually"),
+    (["--sample_spatial", "2"], "H=11 divisible by 4"),
 ])
-def test_options_of_later_slices_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_bad_multi_device_options_raise(tmp_path, extra, match):
+    """What JAX's CLI refuses with ValueError the port refuses too, before
+    any rank starts or anything is written: DP and spatial sampling at
+    once, and planes (here 11x16x11) whose H does not divide by twice the
+    spatial ranks."""
+    from sin3dm_tpu.cli import sample as jcli
+    from sin3dm_tpu.core import config as jcfg
+    with pytest.raises(ValueError, match=match):
         cli.main(_argv(tmp_path, *extra))
+    assert not any(tmp_path.iterdir())
+    argv = [a for a in _argv(tmp_path, *extra) if a not in ("--device",
+                                                             "cpu")]
+    with pytest.raises(ValueError):
+        jcli._build_sampler(jcfg.sample_args(argv))
 
 
 def test_cli_inpaint_cpu_keeps_y0_outside_the_region(tmp_path,

@@ -9,8 +9,9 @@ towerruins encoding (`--enc_log`), on the CPU with a narrow UNet
   parameters and every EMA from the EMA file, the moments and counts from
   the opt file.
 - `cli.sample --vox` runs from the EMA the port wrote.
-- The guards: a multi-device `--n_devices` (in either stage) and
-  `--device cuda` (the default) without a card raise.
+- `--n_devices 2` whose batch does not divide trains on one device, as
+  JAX's CLI does; `SIN3DM_DIST=1` without a coordinator and `--device
+  cuda` (the default) without a card raise.
 """
 
 import json
@@ -158,13 +159,28 @@ def test_sample_cli_runs_from_the_port_ema(trained, tmp_path):
         assert v["vox_grid"].ndim == 3
 
 
-@pytest.mark.parametrize("extra,exc,match", [
-    (["--n_devices", "2"], NotImplementedError, "multi-device"),
-    (["--only_enc", "--n_devices", "2"], NotImplementedError, "AE training"),
-])
-def test_options_of_later_slices_raise(tmp_path, extra, exc, match):
-    with pytest.raises(exc, match=match):
-        train_cli.main(_argv(tmp_path / "tag", *extra))
+def test_n_devices_that_do_not_divide_the_batch_train_on_one(tmp_path,
+                                                            capsys):
+    """As JAX's CLI, `--n_devices 2` with a batch of 1 trains on this one
+    device (the port says why); the loop and its files are the
+    single-process run's."""
+    res = train_cli.main(_argv(tmp_path / "tag", "--n_devices", "2"))
+    assert "does not divide over the ranks" in capsys.readouterr().out
+    assert isinstance(res.diffusion, TD.DiffusionTrainLoop)
+    assert res.diffusion.group is None and res.diffusion.state.step == 2
+    assert (tmp_path / "tag" / "diffusion" / "ema_0.9999_000002.pt").exists()
+
+
+def test_bootstrap_without_a_coordinator_raises(tmp_path, monkeypatch):
+    """`SIN3DM_DIST=1` without the coordinator's variables: ValueError
+    naming them, before anything trains."""
+    monkeypatch.setenv("SIN3DM_DIST", "1")
+    for v in ("SIN3DM_COORDINATOR", "SIN3DM_NUM_PROCESSES",
+              "SIN3DM_PROCESS_ID"):
+        monkeypatch.delenv(v, raising=False)
+    with pytest.raises(ValueError, match="SIN3DM_COORDINATOR"):
+        train_cli.main(_argv(tmp_path / "tag"))
+    assert not list((tmp_path / "tag" / "diffusion").glob("*.pt"))
 
 
 def test_train_defaults_to_the_card(tmp_path):
