@@ -121,30 +121,50 @@ of this repository.  Phases, each printing its results:
    feat.npz ends nearer it, a DDIM-10 round trip and vb_terms_bpd at
    t in {0, 1, 500, 999} in fp32 on the card against the host, a bf16
    DDIM-100 round trip, and calc_bpd_loop over T = 1000 (K1 8,000);
-12. two ranks that share the card (gloo: NCCL takes one card a rank),
-   started by the port's `parallel.spawn`: 12a the group's backend and
-   an all_reduce of a CUDA tensor; 12d 2 ranks x 16 of the diffusion
-   train step at the tag's width against this process at batch 32 with
-   the same draws, TF32 off (loss terms 1e-5 relative; each leaf's grad
+12. two ranks that share card 0 over gloo on any machine (the ranks and
+   the bootstrapped processes see card 0 alone through
+   CUDA_VISIBLE_DEVICES), started by the port's `parallel.spawn`: 12a
+   the group's backend, each rank's device, an all_reduce of a CUDA
+   tensor, and in bf16 and fp32 an all_reduce_many of dyadic values and
+   a gather_rows, bit for bit; 12d 2 ranks x 16 of the diffusion train
+   step at the tag's width against this process at batch 32 with the
+   same draws, TF32 off (loss terms 1e-5 relative; each leaf's grad
    within P12_GRAD_TOL of its largest of the same step in fp64 on the
    card, this process's fp32 grad's distances printed beside; the DP
    step with TF32 on, the control, must lie beyond that limit), the
-   ranks' params bit-identical after 4 steps, ms
-   per step with TF32 on and the gradient's all_reduce alone; 12e the AE
-   step at batch 65,536 on phase 8's synthetic shape the same way; 12f
-   two processes started with the SIN3DM_DIST variables give 12d's
-   first step; 12b `cli.sample --sample_devices 2` (the mesh
-   path, DDIM-100, 2 samples): each rank's K1 (800) and K2 launches and
-   outputs, its bf16 feat.npz bits against one process's batch-1 run,
-   seconds against one process at batch 2 and batch 1 x2, and in fp32
-   each feat.npz within 1e-4 of each plane's largest of the same
-   index's chain here; 12c `--sample_spatial 2` (DDIM-100, fp32, the
-   full planes) within 1e-4 of the unsharded chain of the differentiable
-   form, no K1 launch, all_reduces per forward, seconds;
+   ranks' params bit-identical after 4 steps, ms per step with TF32 on
+   beside this process's at batch 32, and the gradient's all_reduce
+   alone; 12e the AE step at batch 65,536 on phase 8's synthetic shape
+   the same way; 12f two processes started with the SIN3DM_DIST
+   variables give 12d's first step; 12b `cli.sample --sample_devices 2`
+   (the mesh path, DDIM-100, 2 samples): each rank's K1 (800) and K2
+   launches and outputs, its bf16 feat.npz bits against one process's
+   batch-1 run, seconds against one process at batch 2 and batch 1 x2,
+   and in fp32 each feat.npz within 1e-4 of each plane's largest of the
+   same index's chain here; 12c `--sample_spatial 2` (DDIM-100, fp32,
+   the full planes) within 1e-4 of the unsharded chain of the
+   differentiable form, no K1 launch, all_reduces per forward, seconds;
+13. where the machine has two cards or more, one rank a card over NCCL
+   on n = min(4, cards) (on one card it prints that it did not run, and
+   why): `nvidia-smi topo -m`; 13a-13f as 12a-12f on n ranks, each on
+   its own card (13d at n x 32/n, 13e at n x 65,536/n, the same gates),
+   13b with `--sample_devices 0` and n samples, its bf16 and fp32
+   feat.npz bit for bit one process's batch-1 chains; 13f also
+   `cli.train` (the committed encoding, batch 32, 2 steps) through n
+   bootstrapped processes against `--n_devices n` (every dumped value
+   bit for bit, the EMAs within P13_EMA_TOL) and `cli.sample
+   --sample_devices 0` through n bootstrapped processes against 13b's
+   bits; 13c over 2 cards, and
+   `--sample_spatial 4` refused; 13g on every card but 0, from this
+   process whose current device stays 0, phase 3's K1, K1′ and K2 checks
+   (untimed), every card's K1 per forward and K2 per slab by events, and
+   `cli.sample --gpu_id n-1 --vox` with card 0's K1 and K2 launches;
 7. a JSON line of every kernel's numbers, then as the last line
    {"ok": true, "device": {...}}.
 
-Imports nothing of JAX or of the JAX package.
+`python3 chip_smoke.py --only 12,13` (or `12`, or `13`) builds and runs
+only those phases, for work on the several-rank path; without arguments
+it runs every phase.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -271,12 +291,12 @@ def k1_groups():
 
 
 def group_inputs(g, B, planes, C, Co):
-    """Seeded fp32 operands of one triplane conv, per plane: x, w, b, col3,
-    row3, act, skip."""
+    """Seeded fp32 operands of one triplane conv, per plane, on the
+    generator's card: x, w, b, col3, row3, act, skip."""
     import torch
 
     def rnd(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device="cuda") * scale
+        return torch.randn(*shape, generator=g, device=g.device) * scale
     out = []
     for H, W in planes:
         out.append({"x": rnd(B, H, W, C),
@@ -426,7 +446,7 @@ def k1_bound_parts(B, planes, C, Co, form):
     return flops, nbytes
 
 
-def check_k1_forms(B: int, timed: bool = True):
+def check_k1_forms(B: int, timed: bool = True, device: str = "cuda"):
     """K1 and K1′ against their plain versions at every main-path plane
     shape where a form runs (default and act everywhere, the stats forms
     where the stats chain puts them), bf16 and fp32, one plane at a time;
@@ -442,13 +462,17 @@ def check_k1_forms(B: int, timed: bool = True):
     max_abs_err, launches, and default_ms / default_device_ms: the default
     form over the same launches} per forward of its configuration.  With
     `timed` false it only checks, and each form's entry holds its
-    max_abs_err."""
+    max_abs_err.  `device`: the card the operands lie on (the caller's
+    current device stays as it is)."""
     import torch
     from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout,
                                                  conv3x3_rollout_reference,
                                                  conv3x3_rollout_triplane,
                                                  pack_conv_weights)
-    g = torch.Generator(device="cuda").manual_seed(4)
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(4)
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
             "library_default_ms", "library_benchmark_ms",
             "library_device_ms", "flops", "nbytes")
@@ -471,7 +495,7 @@ def check_k1_forms(B: int, timed: bool = True):
                     args = plane_args(op, dt, form)
                     got = conv3x3_rollout(*args)
                     ref = conv3x3_rollout_reference(*args)
-                    torch.cuda.synchronize()
+                    torch.cuda.synchronize(dev)
                     singles.append(got)
                     (gy, gs), (ry, rs) = (got, ref) if stats else \
                         ((got, None), (ref, None))
@@ -479,9 +503,9 @@ def check_k1_forms(B: int, timed: bool = True):
                     err = (gy - ry).abs()
                     tol = k1_tol(ry, dt)
                     ok = bool((err <= tol).all())
-                    line = (f"K1 {form:14s} {str(dt)[6:]:8s} {H:3d}x{W:<3d} "
-                            f"C={C:3d} Co={Co:3d}: max_abs_err "
-                            f"{err.max().item():.3e}")
+                    line = (f"K1 {dev} {form:14s} {str(dt)[6:]:8s} "
+                            f"{H:3d}x{W:<3d} C={C:3d} Co={Co:3d}: "
+                            f"max_abs_err {err.max().item():.3e}")
                     if stats:
                         e_own, e_ref = stats_errors(gy, gs, ry, rs, tol)
                         ok = ok and e_own <= 1.0 and e_ref <= 1.0
@@ -497,7 +521,7 @@ def check_k1_forms(B: int, timed: bool = True):
                 # one triplane launch equals the three single-plane ones
                 tri = conv3x3_rollout_triplane(*triplane_args(ops, dt, form),
                                                packed=packed)
-                torch.cuda.synchronize()
+                torch.cuda.synchronize(dev)
                 ty, ts = tri if stats else (tri, None)
                 for i, one in enumerate(singles):
                     sy, ss = one if stats else (one, None)
@@ -549,8 +573,8 @@ def check_k1_forms(B: int, timed: bool = True):
                          ("flops", flops), ("nbytes", nbytes)):
                 f[k] += n * v
             f["launches"] += n
-    print(f"K1 (batch {B}): {n_bitwise} triplane planes equal their "
-          "single-plane launches bit for bit")
+    print(f"K1 (batch {B}, {dev}): {n_bitwise} triplane planes equal "
+          "their single-plane launches bit for bit")
     if not timed:
         return forms
     for form, f in forms.items():
@@ -620,10 +644,14 @@ def k2_times(params, x) -> dict:
             "bound_by": by}
 
 
-def check_k2(ae_params, n_rows: int):
+def check_k2(ae_params, n_rows: int, timed: bool = True):
+    """K2 against its plain version on both heads over `n_rows` rows, bf16
+    and fp32, on the card the params lie on (the caller's current device
+    stays as it is); with `timed`, the times of `k2_times` per slab."""
     import torch
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp, skip_mlp_reference
-    g = torch.Generator(device="cuda").manual_seed(2)
+    card = ae_params["geo_decoder"]["first"][0]["w"].device
+    g = torch.Generator(device=card).manual_seed(2)
     totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
               "library_ms": 0.0, "library_device_ms": 0.0, "bound_ms": 0.0}
     flops_all = nbytes_all = 0.0
@@ -631,22 +659,26 @@ def check_k2(ae_params, n_rows: int):
     for head in ("geo_decoder", "tex_decoder"):
         params = ae_params[head]
         cin = params["first"][0]["w"].shape[0]
-        x = torch.randn(n_rows, cin, generator=g, device="cuda") * 0.5
+        x = torch.randn(n_rows, cin, generator=g, device=card) * 0.5
         for dt, tol_rel in ((torch.bfloat16, K2_BF16_TOL),
                             (torch.float32, F32_TOL)):
             got = skip_mlp(params, x, mxu_dtype=dt)
             ref = skip_mlp_reference(params, x, mxu_dtype=dt)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(card)
             err = (got - ref).abs().max().item()
             scale = ref.abs().max().item()
             ok = err <= tol_rel * max(scale, 1e-6)
-            print(f"K2 {str(dt)[6:]:8s} {head} N={n_rows}: max_abs_err "
-                  f"{err:.3e}, max_rel_err {err / max(scale, 1e-6):.3e} of "
-                  f"max |ref| {scale:.3e} (tol {tol_rel:.3e}) "
+            print(f"K2 {card} {str(dt)[6:]:8s} {head} N={n_rows}: "
+                  f"max_abs_err {err:.3e}, max_rel_err "
+                  f"{err / max(scale, 1e-6):.3e} of max |ref| {scale:.3e} "
+                  f"(tol {tol_rel:.3e}) "
                   f"({'ok' if ok else 'FAIL'})")
             if not ok:
-                fail(f"K2 {dt} {head} disagrees with its plain version")
+                fail(f"K2 {dt} {head} on {card} disagrees with its plain "
+                     "version")
             max_err = max(max_err, err)
+        if not timed:
+            continue
         t = k2_times(params, x)
         ms, dev, plain, lib, lib_dev, flops, nbytes = (
             t[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
@@ -661,6 +693,8 @@ def check_k2(ae_params, n_rows: int):
             totals[k] += v
         flops_all += flops
         nbytes_all += nbytes
+    if not timed:
+        return {"max_abs_err": max_err}
     totals["bound_ms"], by = bound(flops_all, nbytes_all, PEAK_BF16_FLOPS)
     print(f"K2 per slab (both heads): kernel {totals['ms']:.3f} ms (device "
           f"{totals['device_ms']:.3f}), plain {totals['plain_ms']:.3f} ms, "
@@ -1286,10 +1320,12 @@ def card_vs_plain(feat_path: str, reso: int = 64, texreso: int = 256):
 
 # `cli.train` at the committed diffusion args.json's values (batch 32,
 # steps_per_call 20, lr 5e-4, EMA 0.9999; the rest are the defaults),
-# cut to 100 steps
+# cut to 100 steps, in this process on one card on any machine (the
+# default --n_devices 0 takes every card; phases 12-13 run the ranks)
 TRAIN_ARGV = ["--diff_batch_size", "32", "--steps_per_call", "20",
               "--diff_lr", "5e-4", "--ema_rate", "0.9999", "--diff_n_iters",
-              "100", "--save_interval", "100", "--log_interval", "20"]
+              "100", "--save_interval", "100", "--log_interval", "20",
+              "--n_devices", "1"]
 EMA_PATH = os.path.join(TAG, "diffusion", "ema_0.9999_025000.pt")
 # the warm optimiser state of 6a: from a fresh state AdamW's first step is
 # g / (|g| + eps), which turns the roundoff of near-zero grads (|g| ~ eps)
@@ -1897,7 +1933,7 @@ def drive_ae_train(tag_dir: str, npz: str) -> dict:
     argv = (["--tag", tag_dir, "--data_path", npz] + encoding_argv()
             + ["--enc_n_iters", str(AE_ITERS), "--log_interval", "50",
                "--diff_batch_size", "32", "--diff_n_iters", "20",
-               "--save_interval", "20"])
+               "--save_interval", "20", "--n_devices", "1"])
     old_fmt = os.environ.get("SIN3DM_LOG_FORMAT")
     os.environ["SIN3DM_LOG_FORMAT"] = "log,csv,json"
     torch.cuda.reset_peak_memory_stats()
@@ -3483,22 +3519,24 @@ def phase11(ucfg, want_forms: dict, want_k2: int, aabb,
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: several ranks on the one card
+# Phases 12 and 13: several ranks
 # ---------------------------------------------------------------------------
 
-# 12b and 12c sample with DDIM-100 at the app's sizes (the sample CLI's
-# defaults: reso 256, texreso 2048, 10,000 faces)
+# 12b/13b and 12c/13c sample with DDIM-100 at the app's sizes (the sample
+# CLI's defaults: reso 256, texreso 2048, 10,000 faces)
 P12_DDIM = ["--use_ddim", "true", "--timestep_respacing", "ddim100"]
 # 12d: the global batch (the diffusion args.json's) over P12_RANKS ranks
 P12_B, P12_RANKS = 32, 2
-P12_TIMED = 10         # timed steps per rank, 12d and 12e
+P12_TIMED = 10         # timed steps per rank, 12d/13d and 12e/13e
 # each leaf of a DP gradient from fp64, of the leaf's largest |g| (a
 # leaf an InstanceNorm cancels: of the whole gradient's largest, 1e-5).
-# 12d: eight sound runs read 0.86e-4 to 1.07e-4, the control (the same
-# DP step with TF32 on) 1.43e-2, beyond 2.5e-4 at 138 leaves (PERF.md,
-# section 6); 12e: 1e-4, the sound runs 3.06e-5, the control 5.34e-3,
-# beyond 1e-4 at 34 leaves.
-P12_GRAD_TOL = {"12d": 2.5e-4, "12e": 1e-4}
+# The diffusion step (12d, 13d): eight sound runs read 0.86e-4 to 1.07e-4,
+# the control (the same DP step with TF32 on) 1.43e-2, beyond 2.5e-4 at
+# 138 leaves (PERF.md, section 6); the AE step (12e, 13e): 1e-4, the
+# sound runs 3.06e-5, the control 5.34e-3, beyond 1e-4 at 34 leaves.
+P12_GRAD_TOL = {"d": 2.5e-4, "e": 1e-4}
+# phase 13: one rank a card over NCCL, on at most this many cards
+P13_MAX_CARDS = 4
 
 
 def p12_sha(t) -> str:
@@ -3507,15 +3545,38 @@ def p12_sha(t) -> str:
 
 
 def p12_group(group) -> dict:
-    """12a, in a rank: the group's backend and device, and an `all_reduce`
-    of a CUDA tensor to which rank r gives r + 1."""
+    """12a/13a, in a rank: the group's backend and device; an `all_reduce`
+    of a CUDA tensor to which rank r gives r + 1; in bf16 and fp32 an
+    `all_reduce_many` of dyadic values (their sums exact in either type)
+    and a `gather_rows` of seeded rows, each against the sum or the
+    concatenation of every rank's values made here from their seeds, bit
+    for bit."""
     import torch
     from sin3dm_tpu_torch.parallel import mesh
-    x = torch.full((1024,), float(group.rank + 1), device=group.device)
+    dev = group.device
+    x = torch.full((1024,), float(group.rank + 1), device=dev)
     mesh.all_reduce(group, x)
     want = group.size * (group.size + 1) / 2
-    return {"backend": group.backend, "device": str(group.device),
-            "sum": float(x[0]), "sum_ok": bool((x == want).all().item())}
+
+    def rows(r, dt):
+        g = torch.Generator().manual_seed(100 + r)
+        return torch.randn(64, 48, generator=g).to(dt)
+
+    def dyadic(r, dt):
+        g = torch.Generator().manual_seed(200 + r)
+        return (torch.randint(-64, 65, (4096,), generator=g) / 16).to(dt)
+    exact = {}
+    for dt in (torch.bfloat16, torch.float32):
+        (got,) = mesh.all_reduce_many(group, [dyadic(group.rank, dt).to(dev)])
+        total = sum(dyadic(r, torch.float64)
+                    for r in range(group.size)).to(dt)
+        gathered = mesh.gather_rows(group, rows(group.rank, dt).to(dev))
+        cat = torch.cat([rows(r, dt) for r in range(group.size)])
+        exact[str(dt)[6:]] = (torch.equal(got.cpu(), total)
+                              and torch.equal(gathered.cpu(), cat))
+    return {"backend": group.backend, "device": str(dev),
+            "sum": float(x[0]), "sum_ok": bool((x == want).all().item()),
+            "exact": exact}
 
 
 def p12_train_parts(dev, group=None):
@@ -3590,11 +3651,14 @@ def p12_first_step(dev, group=None, exact: bool = False,
 
 def p12_timed(step, group, n: int) -> float:
     """ms per call of `step()` over `n` calls, host clock from a sync (and
-    a barrier) to a sync."""
+    with a group a barrier) to a sync: NCCL's collectives run on the
+    stream, so a time that did not end in a sync would read their
+    launch."""
     import torch
     from sin3dm_tpu_torch.parallel.mesh import barrier
     torch.cuda.synchronize()
-    barrier(group)
+    if group is not None:
+        barrier(group)
     t0 = time.perf_counter()
     for _ in range(n):
         step()
@@ -3694,58 +3758,80 @@ def p12_bootstrap_worker() -> None:
     first = p12_first_step(group.device, group)
     print("RESULT " + json.dumps({
         "rank": group.rank, "backend": group.backend,
+        "device": str(group.device),
         "loss": first["terms"]["loss"].cpu().tolist(),
         "g_sha": p12_sha(first["g"])}), flush=True)
     dist.destroy_process_group()
 
 
-def p12_bootstrap(want: dict) -> dict:
-    """12f. Two processes started with `SIN3DM_DIST=1` and a
-    `tcp://localhost` coordinator: each gives 12d's first step (per-example
-    losses within 1e-5 relative of 12d's, the gradient's bits printed)."""
+def p12_free_port() -> int:
     import socket
-    import numpy as np
     with socket.socket() as s:
         s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
-            "chip_smoke.p12_bootstrap_worker()")
+        return s.getsockname()[1]
+
+
+def p12_processes(argv, n: int, label: str, timeout: int = 300,
+                  **env) -> list:
+    """`argv` in n processes started by hand with the SIN3DM_DIST
+    variables over a `tcp://localhost` coordinator (process r with
+    SIN3DM_PROCESS_ID r, so card r where each has one) and `env`; fails
+    where one exits non-zero.  Returns their stdouts and the seconds
+    from the start to the last one's exit."""
+    port = p12_free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=dict(
+        argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(
             os.environ, SIN3DM_DIST="1",
             SIN3DM_COORDINATOR=f"localhost:{port}",
-            SIN3DM_NUM_PROCESSES="2", SIN3DM_PROCESS_ID=str(r)))
-        for r in range(2)]
-    res = []
+            SIN3DM_NUM_PROCESSES=str(n), SIN3DM_PROCESS_ID=str(r), **env))
+        for r in range(n)]
+    outs = []
     try:
         for r, p in enumerate(procs):
-            out, err = p.communicate(timeout=300)
+            out, err = p.communicate(timeout=timeout)
             if p.returncode != 0:
-                fail(f"12f: process {r} exited {p.returncode}:\n"
+                fail(f"{label}: process {r} exited {p.returncode}:\n"
                      f"{err[-4000:]}")
-            lines = [ln for ln in out.splitlines()
-                     if ln.startswith("RESULT ")]
-            res.append(json.loads(lines[-1][len("RESULT "):]))
+            outs.append(out)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    secs = time.perf_counter() - t0
+    return outs, time.perf_counter() - t0
+
+
+def p12_bootstrap(want: dict, n: int, label: str) -> dict:
+    """12f/13f. n processes started with `SIN3DM_DIST=1` each give the
+    DP step's first step (per-example losses within 1e-5 relative of
+    12d's/13d's, the gradient's bits printed)."""
+    import numpy as np
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "chip_smoke.p12_bootstrap_worker()")
+    outs, secs = p12_processes([sys.executable, "-c", code], n, label)
+    res = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        res.append(json.loads(lines[-1][len("RESULT "):]))
     want_loss = np.asarray(want["loss"])
     errs = [float(np.abs(np.asarray(r["loss"]) - want_loss).max()
                   / np.abs(want_loss).max()) for r in res]
     same_g = [r["g_sha"] == want["g_sha"] for r in res]
-    print(f"12f bootstrap: 2 processes, ranks {[r['rank'] for r in res]}, "
-          f"backend {[r['backend'] for r in res]}, per-example losses "
-          f"within {max(errs):.3e} (rel; tol 1e-05) of 12d's, gradient "
-          f"bits equal to 12d's: {same_g}; {secs:.1f} s with their start")
-    if sorted(r["rank"] for r in res) != [0, 1] or max(errs) > 1e-5:
-        fail("12f: the bootstrapped processes did not give 12d's step")
+    print(f"{label} bootstrap: {n} processes, ranks "
+          f"{[r['rank'] for r in res]}, backend "
+          f"{[r['backend'] for r in res]}, devices "
+          f"{[r['device'] for r in res]}, per-example losses within "
+          f"{max(errs):.3e} (rel; tol 1e-05) of {label[:-1]}d's, gradient "
+          f"bits equal to {label[:-1]}d's: {same_g}; {secs:.1f} s with "
+          "their start")
+    if sorted(r["rank"] for r in res) != list(range(n)) or max(errs) > 1e-5:
+        fail(f"{label}: the bootstrapped processes did not give "
+             f"{label[:-1]}d's step")
     return {"seconds": secs, "loss_rel_err": max(errs),
-            "g_bits_equal": same_g}
+            "g_bits_equal": same_g,
+            "backends": [r["backend"] for r in res]}
 
 
 def p12_grad_errs(state, got, want, cancel=None) -> dict:
@@ -3766,7 +3852,7 @@ def p12_grad_errs(state, got, want, cancel=None) -> dict:
 def p12_grads(label: str, state, dp, one, exact, control,
               cancel=None) -> dict:
     """The DP gradient against the step's gradient in fp64 (`exact`):
-    each leaf within P12_GRAD_TOL[label] of its largest, a cancelled leaf
+    each leaf within P12_GRAD_TOL of its largest, a cancelled leaf
     within 1e-5 of the whole gradient's largest.  Beside it, printed
     only, the one-process fp32 gradient of the same step against both:
     two fp32 gradients summed in other orders (cuDNN's weight gradient
@@ -3782,7 +3868,7 @@ def p12_grads(label: str, state, dp, one, exact, control,
                                     ("dp vs one process", dp, one),
                                     ("one process vs fp64", one, exact),
                                     ("control vs fp64", control, exact))}
-    tol = P12_GRAD_TOL[label]
+    tol = P12_GRAD_TOL[label[-1]]
 
     def beyond(e):
         return [leaf for leaf, v in e.items()
@@ -3809,80 +3895,124 @@ def p12_grads(label: str, state, dp, one, exact, control,
     return out
 
 
-def p12_training(tmp: str) -> dict:
-    """12a, 12d, 12e on P12_RANKS ranks that share the card, against this
-    process at the global batch; then 12f."""
+def p12_refs(tmp: str) -> dict:
+    """What 12d/13d and 12e/13e hold the ranks to, in this process on its
+    card: the diffusion step at the global batch P12_B and the AE step at
+    65,536 points (phase 8's synthetic shape, written to `tmp`), each in
+    fp32 with TF32 off and in fp64; and one process's ms per diffusion
+    step at the global batch with TF32 on."""
     import torch
-    from sin3dm_tpu_torch.parallel import spawn
+    from sin3dm_tpu_torch.training import diffusion as TD
     npz = os.path.join(tmp, "shape.npz")
     synth_shape_npz(npz)
-    ref = p12_first_step(torch.device("cuda"))
-    state = ref["parts"][0]
-    ref_terms = {k: v.cpu() for k, v in ref["terms"].items()}
-    ref_g = ref["g"].cpu()
+    dev = torch.device("cuda")
+    ref = p12_first_step(dev)
+    out = {"npz": npz, "state": ref["parts"][0],
+           "terms": {k: v.cpu() for k, v in ref["terms"].items()},
+           "g": ref["g"].cpu()}
     del ref
-    exact_g = p12_first_step(torch.device("cuda"), exact=True)["g"].cpu()
+    out["exact_g"] = p12_first_step(dev, exact=True)["g"].cpu()
     torch.cuda.empty_cache()
-    ast, aterms, ag, _ = p12_ae_first(torch.device("cuda"), npz)
-    ref_ae = {k: float(v) for k, v in aterms.items()}
-    ref_ag = ag.cpu()
+    ast, aterms, ag, _ = p12_ae_first(dev, npz)
+    out.update(ae_state=ast, ae_terms={k: float(v) for k, v in
+                                       aterms.items()}, ae_g=ag.cpu())
     del ag
-    exact_ag = p12_ae_first(torch.device("cuda"), npz, exact=True)[2].cpu()
+    out["ae_exact_g"] = p12_ae_first(dev, npz, exact=True)[2].cpu()
     torch.cuda.empty_cache()
+    state, model, tables, dcfg, tcfg, batch, _, _ = p12_train_parts(dev)
+    step = TD.make_train_step(model, tables, dcfg, tcfg)
+    with tf32(True):
+        step(state, batch, 0)
+        step(state, batch, 0)
+        out["one_ms_per_step"] = p12_timed(lambda: step(state, batch, 0),
+                                           None, P12_TIMED)
+    del state, batch, step
+    torch.cuda.empty_cache()
+    print(f"12d/13d reference: one process at batch {P12_B}, TF32 on: "
+          f"{out['one_ms_per_step']:.3f} ms per step (host clock, "
+          f"{P12_TIMED} steps)")
+    return out
+
+
+def p12_training(tmp: str, refs: dict, n: int, label: str) -> dict:
+    """{label}a, d, e on n ranks started by `parallel.spawn` (phase 12: two
+    that share card 0 over gloo; phase 13: one a card over NCCL), against
+    `refs` (this process at the global batch, and fp64); then {label}f,
+    the step through n bootstrapped processes."""
+    from sin3dm_tpu_torch.parallel import spawn
+    nccl = label == "13"
     t0 = time.perf_counter()
-    ranks = spawn(p12_rank, P12_RANKS, npz, device="cuda")
+    ranks = spawn(p12_rank, n, refs["npz"], device="cuda")
     secs = time.perf_counter() - t0
-    # 12a
+    # a: the group
     for r, rk in enumerate(ranks):
         gr = rk["group"]
-        print(f"12a rank {r}: backend {gr['backend']} on {gr['device']}, "
-              f"all_reduce of a CUDA tensor {gr['sum']} (want "
-              f"{P12_RANKS * (P12_RANKS + 1) / 2}): {gr['sum_ok']}")
-        if gr["backend"] != "gloo" or not gr["sum_ok"]:
-            fail("12a: the group is not gloo or its all_reduce is wrong")
-    # 12d
+        want_dev = f"cuda:{r if nccl else 0}"
+        print(f"{label}a rank {r}: backend {gr['backend']} on {gr['device']}"
+              f" (want {want_dev}), all_reduce of a CUDA tensor "
+              f"{gr['sum']} (want {n * (n + 1) / 2}): {gr['sum_ok']}; "
+              f"all_reduce_many and gather_rows exact: {gr['exact']}")
+        if (gr["backend"] != ("nccl" if nccl else "gloo")
+                or gr["device"] != want_dev or not gr["sum_ok"]
+                or not all(gr["exact"].values())):
+            fail(f"{label}a: the group's backend, device or collectives "
+                 "are wrong")
+    # d: the diffusion step
     r0 = ranks[0]
     terms_err = max(((r0["terms"][k] - v).abs() / v.abs()).max().item()
-                    for k, v in ref_terms.items())
-    print(f"12d: {P12_RANKS} ranks x {P12_B // P12_RANKS} against one "
-          f"process at batch {P12_B}, draws of (seed 0, step 0), TF32 off: "
-          f"loss terms within {terms_err:.3e} (rel; tol 1e-05)")
+                    for k, v in refs["terms"].items())
+    print(f"{label}d: {n} ranks x {P12_B // n} against one process at "
+          f"batch {P12_B}, draws of (seed 0, step 0), TF32 off: loss terms "
+          f"within {terms_err:.3e} (rel; tol 1e-05)")
     if terms_err > 1e-5:
-        fail("12d: loss terms outside the tolerance")
-    grads = p12_grads("12d", state, r0["g"], ref_g, exact_g, r0["g_tf32"])
+        fail(f"{label}d: loss terms outside the tolerance")
+    grads = p12_grads(f"{label}d", refs["state"], r0["g"], refs["g"],
+                      refs["exact_g"], r0["g_tf32"])
     shas = [rk["params_sha_4"] for rk in ranks]
-    print(f"12d: params after 4 steps bit-identical across the ranks: "
+    print(f"{label}d: params after 4 steps bit-identical across the ranks: "
           f"{len(set(shas)) == 1}")
     if len(set(shas)) != 1:
-        fail("12d: the ranks' parameters differ")
+        fail(f"{label}d: the ranks' parameters differ")
     ms = [rk["ms_per_step"] for rk in ranks]
     ar = [rk["all_reduce_ms"] for rk in ranks]
-    print(f"12d: ms per global step (batch {P12_B}, TF32 on, host clock, "
-          f"{P12_TIMED} steps) {ms}; the {r0['n_params']}-parameter fp32 "
-          f"gradient's all_reduce alone {ar} ms ({max(ar) / max(ms):.1%} "
-          f"of the step); peak device memory per rank "
+    # the ring's bus rate: each rank sends and receives 2 (n - 1) / n of
+    # the buffer (NCCL's "busbw")
+    bus = 4 * r0["n_params"] * 2 * (n - 1) / n / (max(ar) * 1e-3) / 1e9
+    print(f"{label}d: ms per global step (batch {P12_B}, TF32 on, host "
+          f"clock, {P12_TIMED} steps) {ms} against one process's "
+          f"{refs['one_ms_per_step']:.3f}; the {r0['n_params']}-parameter "
+          f"fp32 gradient's all_reduce alone {ar} ms "
+          f"({max(ar) / max(ms):.1%} of the step, a bus rate of "
+          f"{bus:.1f} GB/s); peak device memory per rank "
           f"{[rk['peak_bytes'] / 2 ** 30 for rk in ranks]} GiB")
-    # 12e
+    # e: the AE step
     a0 = ranks[0]["ae"]
-    ae_err = max(abs(a0["terms"][k] - v) / abs(v) for k, v in ref_ae.items())
-    print(f"12e: AE step, {P12_RANKS} ranks against one process at batch "
+    ae_err = max(abs(a0["terms"][k] - v) / abs(v)
+                 for k, v in refs["ae_terms"].items())
+    print(f"{label}e: AE step, {n} ranks against one process at batch "
           f"65,536: loss terms within {ae_err:.3e} (rel; tol 1e-05)")
     if ae_err > 1e-5:
-        fail("12e: AE loss terms outside the tolerance")
-    ae_grads = p12_grads("12e", ast, a0["g"], ref_ag, exact_ag,
-                         a0["g_tf32"], cancel=cancelled_leaf)
+        fail(f"{label}e: AE loss terms outside the tolerance")
+    ae_grads = p12_grads(f"{label}e", refs["ae_state"], a0["g"],
+                         refs["ae_g"], refs["ae_exact_g"], a0["g_tf32"],
+                         cancel=cancelled_leaf)
     ae_shas = [rk["ae"]["params_sha"] for rk in ranks]
     ae_ms = [rk["ae"]["ms_per_step"] for rk in ranks]
-    print(f"12e: ms per AE step (TF32 on) {ae_ms}; params bit-identical "
-          f"across the ranks: {len(set(ae_shas)) == 1}")
+    print(f"{label}e: ms per AE step (TF32 on) {ae_ms}; params "
+          f"bit-identical across the ranks: {len(set(ae_shas)) == 1}")
     if len(set(ae_shas)) != 1:
-        fail("12e: the ranks' AE parameters differ")
-    print(f"12a/12d/12e: {secs:.1f} s with the ranks' start")
+        fail(f"{label}e: the ranks' AE parameters differ")
+    print(f"{label}a/{label}d/{label}e: {secs:.1f} s with the ranks' start")
     boot = p12_bootstrap({"loss": r0["terms"]["loss"].tolist(),
-                          "g_sha": p12_sha(r0["g"])})
+                          "g_sha": p12_sha(r0["g"])}, n, f"{label}f")
+    if boot["backends"] != [ranks[0]["group"]["backend"]] * n:
+        fail(f"{label}f: the bootstrapped group's backend differs from "
+             "the spawned one's")
     return {"seconds": secs, "train": {
         "terms_rel_err": terms_err, "grads": grads, "ms_per_step": ms,
-        "all_reduce_ms": ar, "n_params": r0["n_params"],
+        "one_process_ms_per_step": refs["one_ms_per_step"],
+        "all_reduce_ms": ar, "all_reduce_bus_gb_s": bus,
+        "n_params": r0["n_params"],
         "peak_bytes": [rk["peak_bytes"] for rk in ranks]},
         "ae": {"terms_rel_err": ae_err, "grads": ae_grads,
                "ms_per_step": ae_ms},
@@ -3903,52 +4033,73 @@ def p12_plane_errs(got, want) -> list:
             for g, w in zip(got, want)]
 
 
-def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int) -> dict:
-    """12b. `cli.sample --sample_devices 2` (the mesh path, DDIM-100, 2
-    samples, bf16): each rank's K1 and K2 launches and outputs; one
-    process at batch 2 and at batch 1 x2 for the seconds (the bf16 bits
-    of each sample against the batch-1 run's); then in fp32 each DP
-    feat.npz against the chain of the same index at batch 1 in this
-    process."""
+def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int, n: int,
+                 label: str) -> dict:
+    """12b/13b. `cli.sample` data-parallel over n ranks (12b
+    `--sample_devices 2`, two ranks on card 0; 13b `--sample_devices 0`,
+    one rank a card), the mesh path, DDIM-100, n samples, bf16: each
+    rank's device, K1 and K2 launches and outputs; one process at batch n
+    and at batch 1 x n for the seconds (the bf16 bits of each sample
+    against the batch-1 run's: printed in 12b, held in 13b); then in fp32
+    (`--vox` at reso 64) each DP feat.npz against the chain of the same
+    index at batch 1 in this process: 12b within 1e-4 of each plane's
+    largest, 13b bit for bit."""
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
-    argv = ["--tag", TAG, *P12_DDIM, "--n_samples", "2"]
+    nccl = label == "13b"
+    argv = ["--tag", TAG, *P12_DDIM, "--n_samples", str(n)]
     args = cli.cfgmod.sample_args(argv)
+    dp_flag = ["--sample_devices", "0" if nccl else str(n)]
     runs = {}
-    for name, extra in (("dp", ["--sample_devices", "2"]),
-                        ("batch 2", ["--pipeline_chunk", "2"]),
-                        ("batch 1 x2", [])):
+    for name, extra in (("dp", dp_flag),
+                        (f"batch {n}", ["--pipeline_chunk", str(n)]),
+                        (f"batch 1 x{n}", [])):
         reset_counts()
         runs[name] = cli.main(argv + extra + ["--output",
                                               os.path.join(tmp, name)])
         torch.cuda.synchronize()
         if name == "dp" and (read_counts()["k1"] or read_counts()["k2"]):
-            fail("12b: this process launched kernels while the ranks ran")
+            fail(f"{label}: this process launched kernels while the ranks "
+                 "ran")
     dp = runs["dp"]
+    if len(dp["ranks"]) != n:
+        fail(f"{label}: {len(dp['ranks'])} ranks ran, not {n}")
     launches = []
     for r, rk in enumerate(dp["ranks"]):
         texels = {e["dir"]: e["texels"] for e in rk["stages"]
                   if e["stage"] == "texel dispatch"}
-        n = len(rk["paths"])
-        want_k2 = n * slabs + sum(texel_chunks(t) for t in texels.values())
+        k = len(rk["paths"])
+        want_k2 = k * slabs + sum(texel_chunks(t) for t in texels.values())
+        want_dev = f"cuda:{r if nccl else 0}"
         got = rk["launches"]
         names = [os.path.basename(os.path.dirname(p)) for p in rk["paths"]]
-        print(f"12b rank {r}: samples {names}, "
-              f"K1 launches by form {got['k1_forms']} (want {want_k1}), K2 "
-              f"{got['k2']} (want {want_k2}: {slabs} geo slabs + the texel "
-              f"chunks of {sorted(texels.values())} texels)")
+        print(f"{label} rank {r} on {rk['device']} ({rk['backend']}): "
+              f"samples {names}, K1 launches by form {got['k1_forms']} "
+              f"(want {want_k1}), K2 {got['k2']} (want {want_k2}: {slabs} "
+              f"geo slabs + the texel chunks of {sorted(texels.values())} "
+              "texels)")
+        if rk["device"] != want_dev or rk["backend"] != (
+                "nccl" if nccl else "gloo"):
+            fail(f"{label} rank {r}: on {rk['device']} over "
+                 f"{rk['backend']}, not on {want_dev}")
         if got["k1_forms"] != want_k1 or got["k2"] != want_k2:
-            fail(f"12b rank {r}: the kernels did not launch as expected")
+            fail(f"{label} rank {r}: the kernels did not launch as "
+                 "expected")
         for p in rk["paths"]:
             d = os.path.dirname(p)
-            check_mesh_sample(f"12b rank {r}", d, int(os.path.basename(d)),
-                              aabb, args.reso, args.texreso, args.n_faces,
-                              texels[d], rk["stages"])
-        launches.append({"k1": got["k1"], "k2": got["k2"]})
+            check_mesh_sample(f"{label} rank {r}", d,
+                              int(os.path.basename(d)), aabb, args.reso,
+                              args.texreso, args.n_faces, texels[d],
+                              rk["stages"])
+        launches.append({"k1": got["k1"], "k2": got["k2"],
+                         "device": rk["device"]})
     bits = [all((a == b).all() for a, b in zip(
         p12_feats(os.path.join(tmp, "dp", f"{j:03d}", "feat.npz")),
-        p12_feats(os.path.join(tmp, "batch 1 x2", f"{j:03d}",
-                               "feat.npz")))) for j in range(2)]
+        p12_feats(os.path.join(tmp, f"batch 1 x{n}", f"{j:03d}",
+                               "feat.npz")))) for j in range(n)]
+    if nccl and not all(bits):
+        fail(f"{label}: the bf16 DP samples differ from the one-process "
+             "batch-1 run's bits")
 
     def chain(res):
         return sum(e["seconds"] for e in res["stages"]
@@ -3956,44 +4107,51 @@ def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int) -> dict:
     secs = {"dp": dp["seconds"], "dp_chain_by_rank": [
         chain(rk) for rk in dp["ranks"]],
         "dp_generate_by_rank": [rk["seconds"] for rk in dp["ranks"]],
-        "batch 2": runs["batch 2"]["seconds"],
-        "batch 2 chain": chain(runs["batch 2"]),
-        "batch 1 x2": runs["batch 1 x2"]["seconds"],
-        "batch 1 x2 chain": chain(runs["batch 1 x2"])}
-    print(f"12b: bf16 feat.npz bits equal to the one-process batch-1 run's: "
-          f"{bits}; seconds (host clock): 2 ranks {secs['dp']:.3f} with "
-          f"their start (per rank: generate {secs['dp_generate_by_rank']}, "
-          f"chain {secs['dp_chain_by_rank']}), one process at batch 2 "
-          f"{secs['batch 2']:.3f} (chain {secs['batch 2 chain']:.3f}), at "
-          f"batch 1 x2 {secs['batch 1 x2']:.3f} (chain "
-          f"{secs['batch 1 x2 chain']:.3f})")
+        f"batch {n}": runs[f"batch {n}"]["seconds"],
+        f"batch {n} chain": chain(runs[f"batch {n}"]),
+        f"batch 1 x{n}": runs[f"batch 1 x{n}"]["seconds"],
+        f"batch 1 x{n} chain": chain(runs[f"batch 1 x{n}"])}
+    print(f"{label}: bf16 feat.npz bits equal to the one-process batch-1 "
+          f"run's: {bits}; seconds (host clock): {n} ranks "
+          f"{secs['dp']:.3f} with their start (per rank: generate "
+          f"{secs['dp_generate_by_rank']}, chain "
+          f"{secs['dp_chain_by_rank']}), one process at batch {n} "
+          f"{secs[f'batch {n}']:.3f} (chain {secs[f'batch {n} chain']:.3f}),"
+          f" at batch 1 x{n} {secs[f'batch 1 x{n}']:.3f} (chain "
+          f"{secs[f'batch 1 x{n} chain']:.3f})")
     # fp32: the DP samples against the one-process chain of each index
     vox = argv + ["--vox", "--reso", "64"]
     with environ(SIN3DM_SAMPLE_DTYPE="train"):
-        f32 = cli.main(vox + ["--sample_devices", "2", "--output",
-                              os.path.join(tmp, "fp32")])
+        f32 = cli.main(vox + dp_flag + ["--output",
+                                        os.path.join(tmp, "fp32")])
         sampler, C, sizes, _ = cli._build_sampler(cli.cfgmod.sample_args(
             vox))
-        errs = []
-        for j in range(2):
+        errs, f32_bits = [], []
+        for j in range(n):
             x = sampler(0, j, 1, C, sizes)
             want = [p[0].permute(2, 0, 1).cpu().numpy() for p in x]
-            errs.append(p12_plane_errs(p12_feats(os.path.join(
-                tmp, "fp32", f"{j:03d}", "feat.npz")), want))
+            got = p12_feats(os.path.join(tmp, "fp32", f"{j:03d}",
+                                         "feat.npz"))
+            errs.append(p12_plane_errs(got, want))
+            f32_bits.append(all((a == b).all() for a, b in zip(got, want)))
     worst = max(max(e) for e in errs)
-    print(f"12b: fp32 DP feat.npz against this process's batch-1 chain of "
-          f"the same index, per plane of max |x|: {errs} (tol 1e-04)")
-    if worst > 1e-4:
-        fail("12b: the fp32 DP samples differ from the one-process chain")
+    print(f"{label}: fp32 DP feat.npz against this process's batch-1 chain "
+          f"of the same index, per plane of max |x|: {errs} (tol "
+          f"{'0, bit for bit' if nccl else '1e-04'}); bits equal: "
+          f"{f32_bits}")
+    if worst > 1e-4 or (nccl and not all(f32_bits)):
+        fail(f"{label}: the fp32 DP samples differ from the one-process "
+             "chain")
     return {"launches_by_rank": launches, "bf16_bits_equal": bits,
             "seconds": secs, "fp32_worst_rel": worst,
-            "fp32_seconds": f32["seconds"]}
+            "fp32_bits_equal": f32_bits, "fp32_seconds": f32["seconds"]}
 
 
-def p12_spatial(tmp: str) -> dict:
-    """12c. `cli.sample --sample_spatial 2` (DDIM-100, fp32, the full
-    planes) against the unsharded chain of the differentiable form in
-    this process; K1 launches (0), collectives per forward, seconds."""
+def p12_spatial(tmp: str, label: str) -> dict:
+    """12c/13c. `cli.sample --sample_spatial 2` (DDIM-100, fp32, the full
+    planes; 12c two ranks on card 0 over gloo, 13c a card each over
+    NCCL) against the unsharded chain of the differentiable form in this
+    process; K1 launches (0), collectives per forward, seconds."""
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
     from sin3dm_tpu_torch.compat.from_jax import unet_params_from_jax
@@ -4001,6 +4159,7 @@ def p12_spatial(tmp: str) -> dict:
     from sin3dm_tpu_torch.diffusion.gaussian import tables_to_device
     from sin3dm_tpu_torch.diffusion.sampling import make_sampler
     from sin3dm_tpu_torch.models.unet import unet_train_apply
+    nccl = label == "13c"
     argv = ["--tag", TAG, *P12_DDIM, "--n_samples", "1", "--vox", "--reso",
             "64"]
     with environ(SIN3DM_SAMPLE_DTYPE="train"):
@@ -4030,32 +4189,43 @@ def p12_spatial(tmp: str) -> dict:
     per_fwd = [(rk["collectives"]["all_reduce"] - 3) / 100
                for rk in sp["ranks"]]
     chain = [rk["sample_seconds"] for rk in sp["ranks"]]
-    print(f"12c: spatial sampling over 2 ranks, planes {sizes} fp32: "
-          f"feat.npz against the unsharded chain, per plane of max |x|: "
-          f"{errs} (tol 1e-04); K1 launches {k1} (want 0); all_reduces per "
-          f"forward {per_fwd}; chain seconds by rank {chain} against "
-          f"{plain_s:.3f} unsharded ({max(chain) / plain_s:.2f}x); the run "
-          f"{sp['seconds']:.3f} s with the ranks' start")
+    where = [f"{rk['device']} ({rk['backend']})" for rk in sp["ranks"]]
+    print(f"{label}: spatial sampling over 2 ranks on {where}, planes "
+          f"{sizes} fp32: feat.npz against the unsharded chain, per plane "
+          f"of max |x|: {errs} (tol 1e-04); K1 launches {k1} (want 0); "
+          f"all_reduces per forward {per_fwd}; chain seconds by rank "
+          f"{chain} against {plain_s:.3f} unsharded "
+          f"({max(chain) / plain_s:.2f}x); the run {sp['seconds']:.3f} s "
+          "with the ranks' start")
+    want = [(f"cuda:{r if nccl else 0}", "nccl" if nccl else "gloo")
+            for r in range(2)]
+    if [(rk["device"], rk["backend"]) for rk in sp["ranks"]] != want:
+        fail(f"{label}: the spatial ranks are not on {want}")
     if max(errs) > 1e-4 or any(k1):
-        fail("12c: spatial sampling differs from the unsharded chain or "
-             "launched K1")
+        fail(f"{label}: spatial sampling differs from the unsharded chain "
+             "or launched K1")
     return {"worst_rel": max(errs), "launches_k1": k1,
             "launches_k2": [rk["launches"]["k2"] for rk in sp["ranks"]],
             "all_reduce_per_forward": per_fwd, "chain_seconds": chain,
             "unsharded_chain_seconds": plain_s, "seconds": sp["seconds"]}
 
 
-def phase12(want_k1: dict, aabb, slabs: int) -> dict:
-    """12a-12f: two ranks that share the one card."""
+def phase12(want_k1: dict, aabb, slabs: int, refs: dict) -> dict:
+    """12a-12f: two ranks that share card 0 over gloo, on any machine: the
+    ranks and the bootstrapped processes see card 0 alone
+    (`CUDA_VISIBLE_DEVICES`, restored after)."""
     import torch
     torch.cuda.empty_cache()
+    card0 = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_ranks_")
     t0 = time.perf_counter()
     try:
-        out = {"training": p12_training(tmp)}
-        with configuration("default"):
-            out["sampling"] = p12_sampling(tmp, want_k1, aabb, slabs)
-            out["spatial"] = p12_spatial(tmp)
+        with environ(CUDA_VISIBLE_DEVICES=card0 or "0"):
+            out = {"training": p12_training(tmp, refs, P12_RANKS, "12")}
+            with configuration("default"):
+                out["sampling"] = p12_sampling(tmp, want_k1, aabb, slabs,
+                                               P12_RANKS, "12b")
+                out["spatial"] = p12_spatial(tmp, "12c")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
@@ -4063,9 +4233,297 @@ def phase12(want_k1: dict, aabb, slabs: int) -> dict:
     return out
 
 
+def p13_topology(n: int) -> dict:
+    """How the cards are joined, as far as this machine lets it be read:
+    `nvidia-smi topo -m` and `nvidia-smi nvlink --status` (their output,
+    or their exit code and error where the machine refuses them), and
+    which pairs of the n cards reach each other's memory directly
+    (`torch.cuda.can_device_access_peer`).  13d's all_reduce rate is the
+    measured witness of the link."""
+    import torch
+    out = {}
+    for key, cmd in (("topo", ["nvidia-smi", "topo", "-m"]),
+                     ("nvlink", ["nvidia-smi", "nvlink", "--status"])):
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=60, check=False)
+        out[key] = (res.stdout.rstrip() if res.returncode == 0 else
+                    f"not read: exit {res.returncode}: "
+                    f"{(res.stdout + res.stderr).strip()[:300]}")
+    out["peer_access"] = [[i == j or torch.cuda.can_device_access_peer(i, j)
+                           for j in range(n)] for i in range(n)]
+    return out
+
+
+# 13f: `cli.train` from the committed encoding at the tag's batch, two
+# single-step calls, as the bootstrap and `--n_devices` both run it
+# Their EMAs, element by element (absolute): cuDNN's fp32 weight gradient rounds differently from run to run (12f's
+# and 13f's gradient bits differ from 12d's and 13d's), and an AdamW
+# step moves each parameter by at most about lr = 5e-4, so after 2 steps
+# the two runs' parameters lie at most 2 x 2 lr = 2e-3 apart and their
+# EMAs (rate 0.9999) 1e-4 x 2e-3 = 2e-7, plus a rounding of the EMA
+# (6e-8 at |EMA| <= 1): 1e-6 bounds that with room.  The step's losses,
+# a forward of the same draws, must agree bit for bit.
+P13_EMA_TOL = 1e-6
+P13_TRAIN_ARGV = ["--enc_log", os.path.join(TAG, "encoding"),
+                  "--diff_batch_size", "32", "--steps_per_call", "1",
+                  "--diff_lr", "5e-4", "--ema_rate", "0.9999",
+                  "--diff_n_iters", "2", "--save_interval", "2",
+                  "--log_interval", "1"]
+
+
+def p13_train_cli(tmp: str, n: int) -> dict:
+    """13f, `cli.train`: the same command through n processes started by
+    hand (`SIN3DM_DIST`) and through `--n_devices n` from this process
+    (`parallel.spawn`), both one rank a card: every dumped value equal
+    bit for bit, the written EMAs within P13_EMA_TOL."""
+    import numpy as np
+    from sin3dm_tpu_torch.cli import train as train_cli
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    tags = {k: os.path.join(tmp, f"train {k}") for k in ("boot", "spawn")}
+    fmt = {"SIN3DM_LOG_FORMAT": "log,csv,json"}
+    outs, boot_s = p12_processes(
+        [sys.executable, "-m", "sin3dm_tpu_torch.cli.train", "--tag",
+         tags["boot"], *P13_TRAIN_ARGV], n, "13f cli.train", **fmt)
+    with environ(**fmt):
+        t0 = time.perf_counter()
+        train_cli.main(["--tag", tags["spawn"], *P13_TRAIN_ARGV,
+                        "--n_devices", str(n)])
+        spawn_s = time.perf_counter() - t0
+    losses, emas = {}, {}
+    for k, tag in tags.items():
+        diff = os.path.join(tag, "diffusion")
+        with open(os.path.join(diff, "progress.json")) as fh:
+            losses[k] = [json.loads(ln) for ln in fh if ln.strip()]
+        emas[k] = ckpt.load_tree(os.path.join(diff, "ema_0.9999_000002.pt"))[0]
+    pairs = list(zip(ckpt.leaves_with_paths(emas["boot"]),
+                     ckpt.leaves_with_paths(emas["spawn"])))
+    if [pa for (pa, _), _ in pairs] != [pb for _, (pb, _) in pairs]:
+        fail("13f: the two runs' EMAs have other leaves")
+    same_ema = all((a == b).all() for (_, a), (_, b) in pairs)
+    ema_err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in pairs)
+    loss = {k: [d["loss"] for d in v if "loss" in d]
+            for k, v in losses.items()}
+    printed = [ln for ln in outs[0].splitlines() if "data group" in ln]
+    print(f"13f cli.train: {n} bootstrapped processes ({boot_s:.1f} s) and "
+          f"--n_devices {n} ({spawn_s:.1f} s), batch 32, 2 steps: losses "
+          f"{loss['boot']} and {loss['spawn']}, every dumped value equal: "
+          f"{losses['boot'] == losses['spawn']}; the EMAs within "
+          f"{ema_err:.3e} (tol {P13_EMA_TOL:.0e}; bit for bit: {same_ema}); "
+          f"rank 0 printed {printed}")
+    if not loss["boot"] or losses["boot"] != losses["spawn"] \
+            or ema_err > P13_EMA_TOL \
+            or not any("backend nccl" in ln for ln in printed):
+        fail("13f: the bootstrapped cli.train is not --n_devices' over "
+             "NCCL")
+    return {"losses": loss["boot"], "seconds": boot_s,
+            "spawn_seconds": spawn_s, "ema_max_abs_diff": ema_err,
+            "ema_bits_equal": same_ema}
+
+
+def p13_sample_cli(tmp: str, n: int) -> dict:
+    """13f, `cli.sample`: `--sample_devices 0` through n processes started
+    by hand (`--vox` at reso 64), each sample's feat.npz bit for bit
+    13b's (the DP run's bf16 chain of the same index)."""
+    out = os.path.join(tmp, "sample boot")
+    outs, secs = p12_processes(
+        [sys.executable, "-m", "sin3dm_tpu_torch.cli.sample", "--tag", TAG,
+         *P12_DDIM, "--n_samples", str(n), "--vox", "--reso", "64",
+         "--sample_devices", "0", "--output", out], n, "13f cli.sample")
+    bits = [all((a == b).all() for a, b in zip(
+        p12_feats(os.path.join(out, f"{j:03d}", "feat.npz")),
+        p12_feats(os.path.join(tmp, "dp", f"{j:03d}", "feat.npz"))))
+        for j in range(n)]
+    printed = [ln for o in outs[:1] for ln in o.splitlines()
+               if "data group" in ln]
+    print(f"13f cli.sample: {n} bootstrapped processes, --sample_devices 0: "
+          f"feat.npz bits equal to 13b's: {bits}; {secs:.1f} s with their "
+          f"start; rank 0 printed {printed}")
+    if not all(bits) or not any("backend nccl" in ln for ln in printed):
+        fail("13f: the bootstrapped cli.sample is not 13b's over NCCL")
+    return {"bits_equal": bits, "seconds": secs}
+
+
+def p13_card_times(ae_params, slab_rows: int) -> dict:
+    """K1's default form per UNet forward at batch 2 (its triplane
+    launches at every shape, each timed by `time_ms` times its launches
+    per forward) and K2 per slab (both heads, bf16) on the card the params
+    lie on, by CUDA events on that card."""
+    import torch
+    from sin3dm_tpu_torch.ops.fused_conv import (conv3x3_rollout_triplane,
+                                                 pack_conv_weights)
+    from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
+    card = ae_params["geo_decoder"]["first"][0]["w"].device
+    g = torch.Generator(device=card).manual_seed(4)
+    k1 = 0.0
+    with torch.cuda.device(card):
+        for planes, C, Co, calls, _ in k1_groups():
+            ops = group_inputs(g, 2, planes, C, Co)
+            packed = [pack_conv_weights(op["w"]) for op in ops]
+            ta = triplane_args(ops, torch.bfloat16, "default")
+            k1 += calls * time_ms(
+                lambda: conv3x3_rollout_triplane(*ta, packed=packed))
+        k2 = 0.0
+        for head in ("geo_decoder", "tex_decoder"):
+            p = ae_params[head]
+            x = torch.randn(slab_rows, p["first"][0]["w"].shape[0],
+                            generator=g, device=card) * 0.5
+            k2 += time_ms(lambda: skip_mlp(p, x, mxu_dtype=torch.bfloat16),
+                          iters=5)
+    return {"k1_ms_per_forward": k1, "k2_ms_per_slab": k2}
+
+
+def p13_cards(tmp: str, n: int, slab_rows: int) -> dict:
+    """13g. On each card 1 .. n-1, from this process whose current device
+    stays 0: phase 3's K1, K1′ and K2 checks against their plain versions
+    at phase 3's tolerances (untimed); every card's K1 per forward and K2
+    per slab by events, card 0's beside; then `cli.sample --gpu_id n-1
+    --vox` (DDIM-100, reso 64) against the same run on card 0: the same
+    K1 and K2 launches."""
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.ops import pack_params
+    tree, _ = ckpt.load_tree(os.path.join(TAG, "encoding", "ckpt_final.pth"),
+                             "params")
+    out = {"times": {}}
+    for d in range(n):
+        card = torch.device("cuda", d)
+        ae = pack_params(ae_params_from_jax(tree, card))
+        if d:
+            k1 = check_k1_forms(2, timed=False, device=card)
+            k2 = check_k2(ae, slab_rows, timed=False)
+            out[f"cuda:{d}"] = {"k1_max_abs_err": max(
+                f["max_abs_err"] for f in k1.values()),
+                "k2_max_abs_err": k2["max_abs_err"]}
+        out["times"][f"cuda:{d}"] = p13_card_times(ae, slab_rows)
+        print(f"13g cuda:{d}: K1, K1' and K2 against their plain versions "
+              f"{'ok' if d else '(phase 3)'}; times by events: "
+              f"{out['times'][f'cuda:{d}']}")
+        if torch.cuda.current_device() != 0:
+            fail("13g: the checks moved this process's current device")
+        del ae
+    base = ["--tag", TAG, *P12_DDIM, "--n_samples", "1", "--vox", "--reso",
+            "64"]
+    runs = {}
+    for gpu in (0, n - 1):
+        reset_counts()
+        d = os.path.join(tmp, f"gpu {gpu}")
+        res = cli.main(base + ["--gpu_id", str(gpu), "--output", d])
+        torch.cuda.synchronize(gpu)
+        runs[gpu] = {"counts": read_counts(), "paths": res["paths"],
+                     "sample_seconds": res["sample_seconds"]}
+    a, b = runs[0], runs[n - 1]
+    same = (a["counts"]["k1_forms"] == b["counts"]["k1_forms"]
+            and a["counts"]["k2"] == b["counts"]["k2"]
+            and a["counts"]["k1"] > 0 and a["counts"]["k2"] > 0)
+    bits = all((x == y).all() for x, y in zip(
+        p12_feats(a["paths"][0]), p12_feats(b["paths"][0])))
+    print(f"13g cli.sample --gpu_id {n - 1} --vox: K1 by form "
+          f"{b['counts']['k1_forms']}, K2 {b['counts']['k2']} against card "
+          f"0's {a['counts']['k1_forms']}, {a['counts']['k2']}: equal "
+          f"{same}; feat.npz bits equal card 0's: {bits}; chain "
+          f"{b['sample_seconds']:.3f} s against {a['sample_seconds']:.3f} s; "
+          f"current device {torch.cuda.current_device()}")
+    if not same or torch.cuda.current_device() != 0:
+        fail(f"13g: --gpu_id {n - 1} did not launch the kernels as card 0")
+    out["gpu_id_run"] = {"card": n - 1, "k1": b["counts"]["k1"],
+                         "k2": b["counts"]["k2"], "bits_equal_card0": bits,
+                         "chain_s": b["sample_seconds"],
+                         "card0_chain_s": a["sample_seconds"]}
+    return out
+
+
+def phase13(want_k1: dict, aabb, slabs: int, slab_rows: int,
+            refs: dict) -> dict:
+    """13a-13g: one rank a card over NCCL on n = min(4, cards) cards.  On
+    a machine of one card it runs nothing and says why."""
+    import torch
+    from sin3dm_tpu_torch.cli import sample as cli
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("phase 13: not run: this machine has one card, and NCCL "
+              "takes a card a rank (phase 12 ran two ranks on it over "
+              "gloo)")
+        return {"ran": False, "cards": cards}
+    n = min(P13_MAX_CARDS, cards)
+    topo = p13_topology(n)
+    print(f"phase 13: {n} ranks, one a card, of {cards} cards; peer "
+          f"access {topo['peer_access']}; nvidia-smi topo -m: "
+          f"{topo['topo']}\nnvidia-smi nvlink --status: {topo['nvlink']}")
+    tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_cards_")
+    t0 = time.perf_counter()
+    out = {"ran": True, "ranks": n, "cards": cards, "topology": topo}
+    try:
+        out["training"] = p12_training(tmp, refs, n, "13")
+        out["train_cli"] = p13_train_cli(tmp, n)
+        with configuration("default"):
+            out["sampling"] = p12_sampling(tmp, want_k1, aabb, slabs, n,
+                                           "13b")
+            out["sample_cli"] = p13_sample_cli(tmp, n)
+            out["spatial"] = p12_spatial(tmp, "13c")
+            try:
+                cli.main(["--tag", TAG, *P12_DDIM, "--vox",
+                          "--sample_spatial", "4", "--output",
+                          os.path.join(tmp, "spatial 4")])
+            except ValueError as e:
+                print(f"13c: --sample_spatial 4 refused: {e}")
+                out["spatial"]["refused_4"] = str(e)
+            else:
+                fail("13c: --sample_spatial 4 was not refused")
+            out["cards_kernels"] = p13_cards(tmp, n, slab_rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+def several_ranks_only(only: set) -> None:
+    """`--only`: phases 12 and/or 13 after the build, checked against the
+    committed tag's main-path numbers as `main` computes them (K1
+    launches by form of a DDIM-100 chain, the AABB, the geo slabs of a
+    mesh sample, the rows of a slab); prints their results."""
+    import numpy as np
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core import checkpoint as ckpt
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions
+    from sin3dm_tpu_torch.models.unet import k1_launches_by_form
+    _, meta = ckpt.load_tree(os.path.join(TAG, "encoding",
+                                          "ckpt_final.pth"), "params")
+    ucfg = cli._unet_config(cli.cfgmod.sample_args(["--tag", TAG, "--vox"]))
+    want100 = {f: n * 100 for f, n in k1_launches_by_form(ucfg).items()}
+    aabb = np.asarray(meta["aabb"], np.float64)
+    reso = cli.cfgmod.sample_args(["--tag", TAG]).reso
+    slabs = -(-int(grid_resolutions(aabb, reso)[0]) // 8)
+    slab_rows = 8 * meta["grid_shape"][1] * meta["grid_shape"][2]
+    tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_refs_")
+    try:
+        refs = p12_refs(tmp)
+        if 12 in only:
+            print("several ranks: " + json.dumps(
+                phase12(want100, aabb, slabs, refs), default=float))
+        if 13 in only:
+            print("several cards: " + json.dumps(
+                phase13(want100, aabb, slabs, slab_rows, refs),
+                default=float))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        phases = argv[1].split(",") if len(argv) == 2 else []
+        if argv[0] != "--only" or not phases or \
+                not set(phases) <= {"12", "13"}:
+            print("usage: chip_smoke.py [--only 12|13|12,13]",
+                  file=sys.stderr)
+            return 2
+        only = {int(x) for x in phases}
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4104,6 +4562,13 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "bytes stack" in line:
                 print(f"  {name}: {line.strip()}")
+    if only:
+        several_ranks_only(only)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. kernels against their plain versions
     B = 2
@@ -4245,11 +4710,23 @@ def main() -> int:
         serve, default=float))
     served = serve["serving"]
 
-    # 12. two ranks that share the card: the group, DP and spatial
-    # sampling through the CLI, DP training steps, the bootstrap
-    ranks12 = phase12(want(100), aabb, slabs)
-    print("several ranks: " + json.dumps(ranks12, default=float))
+    # 12. two ranks that share card 0: the group, DP and spatial sampling
+    # through the CLI, DP training steps, the bootstrap; 13. one rank a
+    # card over NCCL where there are two cards or more
+    refs_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_refs_")
+    try:
+        refs = p12_refs(refs_dir)
+        ranks12 = phase12(want(100), aabb, slabs, refs)
+        print("several ranks: " + json.dumps(ranks12, default=float))
+        cards13 = phase13(want(100), aabb, slabs, slab_rows, refs)
+        print("several cards: " + json.dumps(cards13, default=float))
+        del refs
+    finally:
+        shutil.rmtree(refs_dir, ignore_errors=True)
     dp12 = ranks12["sampling"]["launches_by_rank"]
+    dp13 = (cards13["sampling"]["launches_by_rank"] if cards13["ran"]
+            else None)
+    by_card = cards13["cards_kernels"] if cards13["ran"] else None
 
     # 7. results
     def row(name, source, replaces, launches, r, **extra):
@@ -4297,6 +4774,11 @@ def main() -> int:
             launches_dp_sampling_by_rank=[r["k1"] for r in dp12],
             launches_spatial_sampling_by_rank=ranks12["spatial"][
                 "launches_k1"],
+            launches_dp_sampling_by_card=dp13 and [r["k1"] for r in dp13],
+            launches_gpu_id_run=by_card and by_card["gpu_id_run"]["k1"],
+            ms_per_forward_by_card=by_card and {
+                c: t["k1_ms_per_forward"]
+                for c, t in by_card["times"].items()},
             max_abs_err_batch1=k1_b1["default"]["max_abs_err"]),
         row("conv3x3_rollout act/skip/emit_stats (K1')", src,
             "sin3dm_tpu/ops/fused_conv.py:177",
@@ -4332,7 +4814,11 @@ def main() -> int:
                 k: v["k2"] for k, v in served["launches"].items()},
             launches_dp_sampling_by_rank=[r["k2"] for r in dp12],
             launches_spatial_sampling_by_rank=ranks12["spatial"][
-                "launches_k2"]),
+                "launches_k2"],
+            launches_dp_sampling_by_card=dp13 and [r["k2"] for r in dp13],
+            launches_gpu_id_run=by_card and by_card["gpu_id_run"]["k2"],
+            ms_per_slab_by_card=by_card and {
+                c: t["k2_ms_per_slab"] for c, t in by_card["times"].items()}),
         row("skip_mlp geo head [2^20, 64] -> 1 (evaluate's surface chunk)",
             "sin3dm_tpu_torch/csrc/fused_mlp.cu",
             "sin3dm_tpu/ops/fused_mlp.py:79",
@@ -4364,7 +4850,14 @@ def main() -> int:
           "'launches_dp_sampling_by_rank' and "
           "'launches_spatial_sampling_by_rank' are each rank's own count "
           "in 12b (DDIM-100, one sample a rank, the mesh path) and 12c "
-          "(spatial: no K1; rank 0's --vox decode at reso 64 launches K2)")
+          "(spatial: no K1; rank 0's --vox decode at reso 64 launches K2); "
+          "where phase 13 ran (else null): "
+          "'launches_dp_sampling_by_card' each rank's count in 13b (one "
+          "rank a card over NCCL, the same run as 12b's), "
+          "'launches_gpu_id_run' 13g's --vox run on the last card, and "
+          "'ms_per_forward_by_card' / 'ms_per_slab_by_card' 13g's times "
+          "by events on each card (K1 default form at batch 2, K2 both "
+          "heads)")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

@@ -32,7 +32,11 @@ contiguous block of the samples, as one process would draw them.
 and rank 0 saves and decodes.  Ranks share a card where there are fewer
 cards than ranks.  The kernels and the geometry library are built before
 the ranks start.  `main` returns the ranks' results beside the merged
-paths.
+paths.  Processes started by hand with `SIN3DM_DIST=1` and the
+coordinator's variables (`parallel.maybe_initialize_distributed`) are
+the ranks themselves: `--sample_devices 0` (or the group's size) samples
+data-parallel over them, `--sample_spatial 0` (or its size) spatially;
+another count above 1 is refused.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from __future__ import annotations
 import glob
 import os
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,13 +79,25 @@ def device_count(n: int, device: str) -> int:
     return torch.cuda.device_count() if device == "cuda" else 1
 
 
-def multi_device(args) -> Tuple[int, int]:
+def multi_device(args, group_size: Optional[int] = None) -> Tuple[int, int]:
     """(data-parallel ranks, spatial ranks) from --sample_devices and
     --sample_spatial; ValueError for what JAX refuses: both at once, or
     planes whose H or W does not divide by 2^(levels - 1) x the spatial
-    ranks."""
-    n_dp = device_count(int(getattr(args, "sample_devices", 1)), args.device)
-    n_sp = device_count(int(getattr(args, "sample_spatial", 1)), args.device)
+    ranks.  In a bootstrapped group of `group_size` processes, 0 means
+    the group and a count above 1 must be its size (ValueError)."""
+    def count(flag: str) -> int:
+        n = int(getattr(args, flag, 1))
+        if group_size is None:
+            return device_count(n, args.device)
+        n = n or group_size
+        if n > 1 and n != group_size:
+            raise ValueError(
+                f"--{flag} {n} in a bootstrapped group of {group_size} "
+                f"processes: pass 0 or {group_size} (the group is the "
+                "ranks)")
+        return n
+
+    n_dp, n_sp = count("sample_devices"), count("sample_spatial")
     if n_dp > 1 and n_sp > 1:
         raise ValueError("--sample_devices and --sample_spatial are "
                          "mutually exclusive")
@@ -352,7 +368,8 @@ def run(args, group=None, spatial_group=None) -> dict:
 
 def _rank(group, args, data_parallel: bool) -> dict:
     """One rank of `main`: `run` on this rank's device, with this
-    process's kernel launches and collectives (all its own) added."""
+    process's kernel launches and collectives (all its own), its device
+    and the group's backend added."""
     from ..ops.fused_conv import conv3x3_rollout
     from ..ops.fused_mlp import skip_mlp
     from ..parallel import mesh
@@ -365,6 +382,7 @@ def _rank(group, args, data_parallel: bool) -> dict:
                        "k2": skip_mlp.launches,
                        "k2_shapes": dict(skip_mlp.shape_launches)}
     out["collectives"] = dict(mesh.COUNTS)
+    out["device"], out["backend"] = str(group.device), group.backend
     return out
 
 
@@ -398,8 +416,23 @@ def launch(args, n_dp: int, n_sp: int) -> dict:
 
 def main(argv=None):
     """Sample and decode as the flags say (`run`), on several ranks where
-    --sample_devices or --sample_spatial asks for them (`launch`)."""
+    --sample_devices or --sample_spatial asks for them (`launch`).  Under
+    the `SIN3DM_DIST` bootstrap this process is one rank of the group
+    (`_rank`: data-parallel or spatial over the whole group; with both
+    counts at 1 it samples alone on its card, as each JAX process does)."""
+    from ..parallel import maybe_initialize_distributed
+    from ..parallel.mesh import close_group
     args = cfgmod.sample_args(argv)
+    group = maybe_initialize_distributed(args.device)
+    if group is not None:
+        n_dp, n_sp = multi_device(args, group.size)
+        if n_dp > 1 or n_sp > 1:
+            out = _rank(group, args, n_dp > 1)
+        else:
+            args.gpu_id = group.device.index or 0
+            out = run(args)
+        close_group(group)
+        return out
     n_dp, n_sp = multi_device(args)
     if n_dp > 1 or n_sp > 1:
         return launch(args, n_dp, n_sp)

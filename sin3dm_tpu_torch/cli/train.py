@@ -205,7 +205,7 @@ def main(argv=None) -> TrainResult:
     `SIN3DM_DIST` bootstrap says (see the module doc)."""
     from ..core.rng import seed_all
     from ..parallel import maybe_initialize_distributed, spawn
-    from ..parallel.mesh import barrier
+    from ..parallel.mesh import barrier, close_group
     args = cfgmod.train_args(argv)
     group = maybe_initialize_distributed(args.device)
     seed_all(0)
@@ -226,10 +226,12 @@ def main(argv=None) -> TrainResult:
                 loop = spawn(_diffusion_rank, n, args, device=args.device)
             else:
                 loop = train_diffusion(args, group)
-        return TrainResult(trainer, loop)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+    if group is not None:
+        close_group(group)
+    return TrainResult(trainer, loop)
 
 
 if __name__ == "__main__":

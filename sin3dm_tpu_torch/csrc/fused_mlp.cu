@@ -451,20 +451,19 @@ extern "C" int sin3dm_skip_mlp_bf16(const float* x, const void* wts,
                                     int n_chunks, int n_layers, float* out,
                                     int n_rows, int cin, int cout,
                                     void* stream) {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // the current device's SM count: the wrapper makes the input's card
+  // current, and cards of one host may differ
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const int n_stages = bf16_stages(cin, n_layers);
   if (n_stages == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 2L * 64 * cin * 2 + 2L * 64 * NH * 2 +
                       (size_t)n_layers * NH * 4 + (size_t)n_stages * STAGE +
                       n_stages * 16;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       mlp_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n_rows + TM2 - 1) / TM2;

@@ -32,6 +32,9 @@ each to bf16 before summing, and cannot emit stats there).  The bf16
 kernel reads its weights in the layout of `pack_conv_weights`: callers
 pass them packed once (`packed=`; `ops.pack_params` packs a parameter
 tree where the model is built), else the wrapper packs them per call.
+Each launch runs with the input's card as the current device, so the
+kernel's attributes, the launch and the stream are that card's whatever
+the caller's current device is.
 
 `conv3x3_rollout.launches` counts every kernel launch of either wrapper
 and `conv3x3_rollout.form_launches` counts them by form (`form_name`),
@@ -274,10 +277,11 @@ def _launch_f32(x, w, b, col3, row3, act, skip, emit_stats):
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(col3), _ptr(row3),
-             _ptr(act_a), _ptr(act_b), _ptr(skip), _ptr(y), _ptr(partial),
-             B, H, W, C, Co,
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(col3), _ptr(row3),
+                 _ptr(act_a), _ptr(act_b), _ptr(skip), _ptr(y),
+                 _ptr(partial), B, H, W, C, Co, ctypes.c_void_p(
+                     torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"conv3x3_rollout: CUDA error {err} at launch")
     _count(act, skip, emit_stats)
@@ -378,9 +382,10 @@ def _launch_bf16(xs, ws, bs, col3s, row3s, acts, skips, emit_stats,
     flat = [a for p in ptrs for a in p]
     table = struct.pack(f"{len(flat)}Q", *flat)
     hw = struct.pack(f"{2 * n}i", *[v for hw_ in sizes for v in hw_])
-    err = lib.sin3dm_conv3x3_bf16(
-        table, hw, n, B, C, Co, ctypes.c_void_p(cnt),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with torch.cuda.device(dev):
+        err = lib.sin3dm_conv3x3_bf16(
+            table, hw, n, B, C, Co, ctypes.c_void_p(cnt),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"conv3x3_rollout: CUDA error {err} at launch")
     _count(acts[0], skips[0], emit_stats)

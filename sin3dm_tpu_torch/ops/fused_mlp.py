@@ -11,7 +11,8 @@ and raises if it cannot; on a CPU tensor it computes the plain version
 `skip_mlp_reference`.  The bf16 kernel reads its weights in the layout
 of `pack_mlp_weights`: from the head's "k2" entry where the head was
 packed once (`ops.pack_params`, where the model is built), else packed
-per call.
+per call.  Each launch runs with the input's card as the current device
+(the kernel's attributes, SM count, launch and stream are that card's).
 
 `skip_mlp.launches` counts every kernel launch, and
 `skip_mlp.shape_launches` counts them by shape, `(rows, cin, cout)`,
@@ -231,13 +232,15 @@ def _launch_bf16(params: Dict, x: torch.Tensor, out: torch.Tensor) -> None:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ctypes.c_void_p(x.data_ptr()),
-             ctypes.c_void_p(pk["wts"].data_ptr()),
-             ctypes.c_void_p(pk["bias"].data_ptr()),
-             ctypes.c_void_p(pk["table"].data_ptr()), pk["table"].shape[0],
-             pk["bias"].shape[0], ctypes.c_void_p(out.data_ptr()),
-             x.shape[0], cin, cout,
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with torch.cuda.device(x.device):
+        err = fn(ctypes.c_void_p(x.data_ptr()),
+                 ctypes.c_void_p(pk["wts"].data_ptr()),
+                 ctypes.c_void_p(pk["bias"].data_ptr()),
+                 ctypes.c_void_p(pk["table"].data_ptr()),
+                 pk["table"].shape[0], pk["bias"].shape[0],
+                 ctypes.c_void_p(out.data_ptr()), x.shape[0], cin, cout,
+                 ctypes.c_void_p(
+                     torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
 
@@ -252,11 +255,13 @@ def _launch_f32(params: Dict, x: torch.Tensor, out: torch.Tensor) -> None:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wts.data_ptr()),
-             ctypes.c_void_p(bias.data_ptr()),
-             ctypes.c_void_p(out.data_ptr()), x.shape[0], cin, hid, cout,
-             n_first, n_second,
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with torch.cuda.device(x.device):
+        err = fn(ctypes.c_void_p(x.data_ptr()),
+                 ctypes.c_void_p(wts.data_ptr()),
+                 ctypes.c_void_p(bias.data_ptr()),
+                 ctypes.c_void_p(out.data_ptr()), x.shape[0], cin, hid, cout,
+                 n_first, n_second, ctypes.c_void_p(
+                     torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"skip_mlp: CUDA error {err} at launch")
 

@@ -11,10 +11,12 @@ in the group (rank, size, device, backend, process group).
   *args)` in each and returns the ranks' return values in rank order; a
   rank that fails makes it raise with that rank's traceback.
 - Rank r computes on `cuda:(r % device_count)`, or on the CPU where the
-  caller asks for it.  The backend is NCCL where every rank has a card
-  of its own, gloo where ranks share a card (NCCL refuses two ranks on
-  one device) or run on the CPU; every rank computes on its device all
-  the same, gloo only carries the collectives through the host.
+  caller asks for it.  Before the group forms, each rank puts its place
+  (host name, card) into the store and reads every other rank's; the
+  backend is NCCL where no two ranks share a card (on one host or on
+  several), gloo where two do (NCCL refuses two ranks on one device) or
+  the ranks run on the CPU.  Every rank computes on its device all the
+  same; gloo only carries the collectives through the host.
 - The one collective is `all_reduce` (gloo runs only it and `broadcast`
   on CUDA tensors).  A gather is an `all_reduce` of a zero-filled
   `[size, ...]` buffer in which each rank fills its own slot
@@ -23,19 +25,23 @@ in the group (rank, size, device, backend, process group).
 - `maybe_initialize_distributed()` is the env-gated bootstrap of
   processes started by hand (JAX's variables: `SIN3DM_DIST=1`,
   `SIN3DM_COORDINATOR` host:port, `SIN3DM_NUM_PROCESSES`,
-  `SIN3DM_PROCESS_ID`).  A JAX process is a host with its chips; a
-  process here is one device, so the process count is the device count.
-  JAX's TPU-pod auto-detection has no counterpart: the coordinator must
-  be given.
+  `SIN3DM_PROCESS_ID`), which meet through a `TCPStore` that process 0
+  serves at the coordinator's address.  A JAX process is a host with its
+  chips; a process here is one device, so the process count is the
+  device count, and process r takes card r % (the host's cards): start
+  a host's processes with consecutive ids.  JAX's TPU-pod
+  auto-detection has no counterpart: the coordinator must be given.
 """
 
 from __future__ import annotations
 
+import json
 import multiprocessing
 import os
 import pickle
 import queue
 import shutil
+import socket
 import tempfile
 import traceback
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, \
@@ -73,43 +79,68 @@ def rank_device(rank: int, device: str = "cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def backend_for(size: int, device: str = "cuda") -> str:
-    """NCCL where each of `size` ranks has a card of its own, else gloo
-    (ranks that share a card, or the CPU)."""
-    if device == "cuda" and size <= torch.cuda.device_count() \
-            and dist.is_nccl_available():
-        return "nccl"
-    return "gloo"
+Place = Tuple[str, Optional[str]]
 
 
-def init_group(rank: int, size: int, device: str = "cuda", store=None,
-               init_method: Optional[str] = None) -> DataGroup:
-    """Join the default process group as `rank` of `size` (through
-    `store`, or `init_method` such as `tcp://host:port`) on the backend
-    `backend_for` picks; prints the choice."""
+def place_of(dev: torch.device) -> Place:
+    """Where a rank computes: (host name, the card's UUID), the card None
+    on the CPU.  The UUID names the physical card whatever
+    `CUDA_VISIBLE_DEVICES` numbers it."""
+    card = (str(torch.cuda.get_device_properties(dev).uuid)
+            if dev.type == "cuda" else None)
+    return socket.gethostname(), card
+
+
+def backend_for(places: Sequence[Place]) -> str:
+    """The group's backend from every rank's place: NCCL where each rank
+    has a card and no two ranks share one (on one host or across hosts),
+    else gloo (ranks that share a card, or the CPU)."""
+    if (any(card is None for _, card in places)
+            or len(set(places)) < len(places)
+            or not dist.is_nccl_available()):
+        return "gloo"
+    return "nccl"
+
+
+def _exchange_places(store, rank: int, size: int,
+                     place: Place) -> List[Place]:
+    """Every rank's place, in rank order, through `store` (each rank sets
+    its own key; `get` waits for the others')."""
+    store.set(f"sin3dm/place/{rank}", json.dumps(place))
+    return [tuple(json.loads(store.get(f"sin3dm/place/{r}")))
+            for r in range(size)]
+
+
+def init_group(rank: int, size: int, device: str, store) -> DataGroup:
+    """Join the default process group as `rank` of `size` through
+    `store`, on the backend `backend_for` picks from the ranks' places
+    (NCCL binds the rank's card at init); rank 0 prints the choice."""
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    backend = backend_for(size, device)
-    kw = {"store": store} if store is not None else {
-        "init_method": init_method}
-    dist.init_process_group(backend, rank=rank, world_size=size, **kw)
+    places = _exchange_places(store, rank, size, place_of(dev))
+    backend = backend_for(places)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, rank=rank, world_size=size,
+                            store=store, **kw)
     if rank == 0:
-        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-        why = ("each rank has a card of its own" if backend == "nccl" else
-               "the ranks share a card" if cards else "ranks on the CPU")
-        print(f"data group: {size} ranks on {dev.type}"
-              f"{f' ({cards} card(s))' if cards else ''}: backend "
+        hosts = len({h for h, _ in places})
+        cards = len({p for p in places if p[1] is not None})
+        why = ("no two ranks share a card" if backend == "nccl" else
+               "ranks share a card" if cards else "ranks on the CPU")
+        print(f"data group: {size} ranks on {hosts} host(s), "
+              f"{f'{cards} card(s)' if cards else 'the CPU'}: backend "
               f"{backend} ({why})", flush=True)
     return DataGroup(rank, size, dev, backend)
 
 
 def maybe_initialize_distributed(device: str = "cuda"
                                  ) -> Optional[DataGroup]:
-    """The env-gated bootstrap: with `SIN3DM_DIST=1`, join the group at
-    `tcp://$SIN3DM_COORDINATOR` as rank `$SIN3DM_PROCESS_ID` of
-    `$SIN3DM_NUM_PROCESSES`; None without `SIN3DM_DIST`.  ValueError
-    names the variables that are missing."""
+    """The env-gated bootstrap: with `SIN3DM_DIST=1`, join the group as
+    rank `$SIN3DM_PROCESS_ID` of `$SIN3DM_NUM_PROCESSES` through a
+    `TCPStore` at `$SIN3DM_COORDINATOR` (host:port; rank 0 serves it);
+    None without `SIN3DM_DIST`.  ValueError names the variables that are
+    missing."""
     if os.environ.get("SIN3DM_DIST", "").lower() not in _ON:
         return None
     names = ("SIN3DM_COORDINATOR", "SIN3DM_NUM_PROCESSES",
@@ -120,9 +151,11 @@ def maybe_initialize_distributed(device: str = "cuda"
             f"SIN3DM_DIST=1 needs {', '.join(missing)}: the port has no "
             "auto-detection of a cluster (give the coordinator's "
             "host:port, the process count and this process's id)")
-    return init_group(int(os.environ["SIN3DM_PROCESS_ID"]),
-                      int(os.environ["SIN3DM_NUM_PROCESSES"]), device,
-                      init_method=f"tcp://{os.environ[names[0]]}")
+    rank = int(os.environ["SIN3DM_PROCESS_ID"])
+    size = int(os.environ["SIN3DM_NUM_PROCESSES"])
+    host, port = os.environ["SIN3DM_COORDINATOR"].rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), size, is_master=rank == 0)
+    return init_group(rank, size, device, store)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +209,13 @@ def barrier(group: DataGroup) -> None:
     all_reduce(group, torch.zeros(1, device=group.device))
 
 
+def close_group(group: DataGroup) -> None:
+    """Wait for every rank (`barrier`), then leave the default process
+    group: the end of a bootstrapped CLI run."""
+    barrier(group)
+    dist.destroy_process_group()
+
+
 def shard_range(total: int, rank: int, size: int) -> Tuple[int, int]:
     """(first, count) of rank's contiguous block of `total` items: the
     first `total % size` ranks take one more."""
@@ -207,7 +247,7 @@ def _rank_entry(fn, rank: int, size: int, device: str, store_path: str,
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
         group = init_group(rank, size, device,
-                           store=dist.FileStore(store_path, size))
+                           dist.FileStore(store_path, size))
         out = fn(group, *args)
         results.put((rank, True, pickle.dumps(out)))
     except BaseException:

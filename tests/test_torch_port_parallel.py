@@ -31,6 +31,9 @@ neither is loaded.  Stated tolerances:
   fed the port's per-sample draws (its own are threefry's).
 - `spawn` raises with a failing rank's traceback, and asks for the card
   by default (no fallback to the CPU).
+- The backend rule (`parallel.mesh.backend_for`) over fabricated places
+  (host, card): NCCL where no two ranks share a card, on one host or on
+  two, gloo where two share one or the ranks run on the CPU.
 """
 
 import functools
@@ -301,3 +304,23 @@ def test_ranks_on_the_card_need_one():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spawn(ranks.fail_on, 2, 1)
+
+
+def _cards(host, n):
+    return [(host, f"GPU-{host}-{i}") for i in range(n)]
+
+
+@pytest.mark.parametrize("places, want", [
+    (_cards("a", 4), "nccl"),                       # one host, 4 cards
+    (_cards("a", 1) * 2, "gloo"),                   # 2 ranks, one card
+    (_cards("a", 4) + _cards("b", 4), "nccl"),      # 2 hosts x 4 cards
+    ([("a", None)] * 2, "gloo"),                    # the CPU
+], ids=["one host 4 cards", "two ranks one card", "two hosts 4 cards",
+        "cpu"])
+def test_backend_from_the_ranks_places(monkeypatch, places, want):
+    """The rule reads where the ranks sit, not the world size against
+    this host's cards (2 hosts x 4 cards is 8 ranks on 4 cards a host);
+    NCCL is taken as available, as it is in a CUDA build."""
+    from sin3dm_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh.dist, "is_nccl_available", lambda: True)
+    assert mesh.backend_for(places) == want

@@ -15,9 +15,20 @@ started by the port's `spawn`):
   eighth of its planes (a 2-step tag samples no surface): each rank
   decodes its sample to a non-empty `object.obj`, from a feat.npz within
   2e-5 of the one-process `--vox` run's.
+- `cli.sample` under the `SIN3DM_DIST` bootstrap: two processes started
+  by hand (`python -m sin3dm_tpu_torch.cli.sample`, gloo over a
+  `tcp://localhost` store) are the group. `--sample_devices 0` writes
+  each sample's feat.npz bit for bit as this process's batch-1 chain of
+  the same index (the ranks run this process's intra-op thread count);
+  `--sample_spatial 2` within 1e-4 of each plane's largest of this
+  process's run. A count above 1 that is not the group's size is
+  refused with a ValueError that names the size.
 """
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -135,3 +146,83 @@ def test_sample_cli_dp_mesh_path(tmp_path, monkeypatch):
             assert sum(line.startswith("f ") for line in f) > 0
     assert [[s["dir"][-3:] for s in r["stages"] if s["stage"] == "chain"]
             for r in mesh["ranks"]] == [["000"], ["001"]]
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _bootstrapped_sample(argv, n=2):
+    """`cli.sample` in n processes started by hand with the SIN3DM_DIST
+    variables; fails with a process's stderr where one fails."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sin3dm_tpu_torch.cli.sample", *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, SIN3DM_DIST="1",
+                 SIN3DM_COORDINATOR=f"localhost:{port}",
+                 SIN3DM_NUM_PROCESSES=str(n), SIN3DM_PROCESS_ID=str(r),
+                 SIN3DM_SAMPLE_DTYPE="train", PYTHONPATH=ROOT,
+                 OMP_NUM_THREADS=str(torch.get_num_threads())))
+        for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return [out for out, _ in outs]
+
+
+def test_sample_cli_bootstrap_dp_and_spatial(tag, tmp_path, monkeypatch):
+    tag, _ = tag
+    monkeypatch.setenv("SIN3DM_SAMPLE_DTYPE", "train")
+    base = ["--tag", str(tag), "--vox", *SAMPLE]
+    # this process: each index's batch-1 chain, and the CLI's own run
+    sampler, C, sizes, _ = sample_cli._build_sampler(
+        sample_cli.cfgmod.sample_args(base))
+    batch1 = {f"{j:03d}": [p[0].permute(2, 0, 1).numpy()
+                           for p in sampler(0, j, 1, C, sizes)]
+              for j in range(2)}
+    one = _feats(sample_cli.main(base + ["--output", str(tmp_path / "one")])
+                 ["paths"])
+    outs = {}
+    for name, extra in (("dp", ["--sample_devices", "0"]),
+                        ("spatial", ["--sample_spatial", "2"])):
+        outs[name] = _bootstrapped_sample(
+            base + ["--output", str(tmp_path / name), *extra])
+    assert "backend gloo" in outs["dp"][0]
+    keys = ("feat_xy", "feat_xz", "feat_yz")
+    for name in ("dp", "spatial"):
+        got = _feats([str(tmp_path / name / j / "feat.npz")
+                      for j in ("000", "001")])
+        for j in ("000", "001"):
+            assert (tmp_path / name / j / "r16_voxel.npz").exists()
+            for k, want in zip(keys, batch1[j]):
+                if name == "dp":
+                    np.testing.assert_array_equal(got[j][k], want,
+                                                  err_msg=f"dp {j} {k}")
+                else:
+                    w = one[j][k]
+                    assert np.abs(got[j][k] - w).max() <= \
+                        1e-4 * np.abs(w).max(), f"spatial {j} {k}"
+
+
+@pytest.mark.parametrize("flags", [["--sample_devices", "2"],
+                                   ["--sample_spatial", "3"]])
+def test_sample_cli_bootstrap_refuses_a_count_not_the_group(
+        tag, monkeypatch, flags):
+    """In a bootstrapped group of 4 a count above 1 other than 4 is
+    refused before anything is sampled."""
+    from sin3dm_tpu_torch import parallel
+    tag, _ = tag
+    group = parallel.DataGroup(0, 4, torch.device("cpu"), "gloo")
+    monkeypatch.setattr(parallel, "maybe_initialize_distributed",
+                        lambda device: group)
+    with pytest.raises(ValueError, match="bootstrapped group of 4"):
+        sample_cli.main(["--tag", str(tag), "--vox", *SAMPLE, *flags])
