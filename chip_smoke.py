@@ -32,6 +32,12 @@ of this repository.  Phases, each printing its results:
    default configuration;
 4d. `--inpaint` under the stats chain (DDIM-100): kept cells equal the
    tag's feat.npz, regenerated cells moved;
+4g. the kernels' opt-outs: `--vox` DDIM-100 (batch 2) with the kernels,
+   then under SIN3DM_FUSED_CONV=0 SIN3DM_FUSED_HEADS=0 (cuDNN convs in
+   the chain, the plain heads in the decode): no K1 and no K2 launch,
+   each feat.npz within K1's bf16 forward bound (4c's) of the kernels'
+   run, the voxel grids within INT8_SHARE_BOUND of its, both routes'
+   chain seconds per sample;
 4e. the mesh path: `cli.sample.main(--tag ... --n_samples 2
    --pipeline_chunk 2)` (DDPM-1000, one batch-2 chain,
    --reso 256, --texreso 2048, --n_faces 10000) with the launch counts
@@ -59,12 +65,16 @@ of this repository.  Phases, each printing its results:
    temporary tag with `--enc_log` the committed encoding at the
    diffusion args.json's values (batch 32, steps_per_call 20, lr 5e-4,
    EMA 0.9999) for 100 steps, TF32 on as the CLI sets it: peak device
-   memory, each dumped mean loss, the checkpoint files; then 80 more
+   memory, each dumped mean loss, the checkpoint files; then 160 more
    steps of the CLI's step with the launch counts set to 0 just before
-   and read just after (K1 and K2: 0), ms per step and samples/s;
+   and read just after (K1 and K2: 0), 80 with today's algorithms and
+   80 with the deterministic ones `cli.train` trains under, in turns:
+   ms per step and samples/s of each;
    6c a 5-step profile of the train step (busy share, operations,
-   top device kernels); 6d `cli.sample --vox` DDIM-10 from what training
-   wrote, with K1's and K2's launches counted;
+   top device kernels); 6e two runs of one `cli.train` command (the
+   committed encoding, batch 32, 40 steps) dump the same bits; 6d
+   `cli.sample --vox` DDIM-10 from what training wrote, with K1's and
+   K2's launches counted;
 8. AE training at the committed encoding args.json's width (skip heads,
    hidden 256 x 4, batch 65,536, fm_reso 128): 8a a synthetic textured
    shape (a box and a sphere, exact SDF, colour ramp) written by numpy
@@ -81,8 +91,18 @@ of this repository.  Phases, each printing its results:
    weights against a fresh pack, bit for bit, the plain heads within
    the derived bound, and the fp64 head no further than the plain
    version, with a faulty head as the control; 8f the AE step's
-   ms, points/s, peak memory, profile and share of its TF32 bound
-   (K2's evaluate shape, the geo head over [2^20, 64], joins phase 3);
+   ms (today's algorithms and the deterministic ones, in turns),
+   points/s, peak memory, profile and share of its TF32 bound (K2's
+   evaluate shape, the geo head over [2^20, 64], joins phase 3); 6e's
+   AE half: two runs of `cli.train --only_enc` on 8a's npz (20
+   iterations) dump the same bits; 8g the `base` net and 8h the `pbr`
+   net (8a's shape with analytic metallic, roughness and normal
+   channels) at the same width: a 60-iteration `cli.train --only_enc`
+   (losses finite and falling, the checkpoint and feat.npz), 8b's step
+   checks from the params it trained, a decode at reso 64 with K2's launches by
+   shape (base: none, as in JAX; pbr: a launch a head and slab at cout
+   1, 3, 2 and 3) and, for pbr, 8e's checks on its four trained heads
+   and K2 at cout 2 timed over the geo slab's rows;
 9. data preparation at full width: numpy writes a textured OBJ (a
    Kd-only box and a UV sphere with an 8-bit RGB map, 101,772 faces)
    whose grid is the tag's 184x256x184; `mesh_sampler.main` with the
@@ -150,11 +170,14 @@ of this repository.  Phases, each printing its results:
    its own card (13d at n x 32/n, 13e at n x 65,536/n, the same gates),
    13b with `--sample_devices 0` and n samples, its bf16 and fp32
    feat.npz bit for bit one process's batch-1 chains; 13f also
-   `cli.train` (the committed encoding, batch 32, 2 steps) through n
-   bootstrapped processes against `--n_devices n` (every dumped value
-   bit for bit, the EMAs within P13_EMA_TOL) and `cli.sample
-   --sample_devices 0` through n bootstrapped processes against 13b's
-   bits; 13c over 2 cards, and
+   `cli.train` (the committed encoding, batch 32, 2 steps) twice through
+   n bootstrapped processes and through `--n_devices n` (every dumped
+   array and progress line bit for bit the first run's: training runs
+   under deterministic algorithms) and `cli.sample --sample_devices 0`
+   through n bootstrapped processes against 13b's bits; 13h the same
+   `cli.train` through n bootstrapped processes with process r on card
+   n-1-r (`SIN3DM_LOCAL_RANK`): on those cards, and 13f's bits; 13c over
+   2 cards, and
    `--sample_spatial 4` refused; 13g on every card but 0, from this
    process whose current device stays 0, phase 3's K1, K1′ and K2 checks
    (untimed), every card's K1 per forward and K2 per slab by events, and
@@ -178,6 +201,11 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# cuBLAS repeats its results only with a fixed workspace per stream, read
+# once at the process's first cuBLAS call: set before any, for the
+# deterministic training of phases 6 and 8 (`core/rng.py`'s value)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TAG = os.path.join(ROOT, "checkpoints", "towerruins")
@@ -878,11 +906,12 @@ def shape_key(rows: int, cin: int, cout: int) -> str:
 
 
 def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
-              occupancy: bool = True):
+              occupancy: bool = True, grids: list = None):
     """`cli.main(argv + --output <tmp>)` with the launch counts set to 0
     just before and read just after; checks the per-form K1 and the K2
     counts, the feat.npz and voxel grids (and each grid's occupancy).
-    Returns (main's result, counts, per-sample feat planes)."""
+    Returns (main's result, counts, per-sample feat planes); each voxel
+    grid is appended to `grids` where given."""
     import numpy as np
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
@@ -909,6 +938,8 @@ def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
             feats.append(planes)
             with np.load(os.path.join(d, f"r{reso}_voxel.npz")) as v:
                 grid = v["vox_grid"]
+            if grids is not None:
+                grids.append(grid)
             occ = float(grid.mean())
             print(f"{label} sample {j}: feat {[p.shape for p in planes]}, "
                   f"voxel grid {tuple(grid.shape)}, occupancy {occ:.4f}")
@@ -980,6 +1011,72 @@ def check_inpaint(feats, H: int) -> None:
               f"(> 1e-3) ({'ok' if ok else 'FAIL'})")
         if not ok:
             fail(f"inpaint sample {j}: kept {kept:.3e}, moved {moved:.3e}")
+
+
+# 4g: the kernels' opt-outs, JAX's switches: the UNet's 3x3 convs through
+# cuDNN (the training forward's) and the decode's heads plain
+NO_KERNELS = {"SIN3DM_FUSED_CONV": "0", "SIN3DM_FUSED_HEADS": "0"}
+
+
+def phase4g(want_forms: dict, want_k2: int) -> dict:
+    """4g. `--vox` DDIM-100, batch 2, at the tag's width in the default
+    configuration, with the kernels and then under NO_KERNELS: the second
+    run launches neither K1 nor K2, each of its feat.npz planes lies
+    within K1's bf16 forward bound of the first run's (4c's, the JAX
+    package's stats-chain bound: |o - r| <= 0.05 + 0.05 |r|, mean <
+    5e-3) and its voxel grids differ from the first run's in at most
+    INT8_SHARE_BOUND of the voxels (4f's bound).  Both routes' chain
+    seconds per sample: the whole-chain library yardstick."""
+    import numpy as np
+    argv = ["--tag", TAG, "--vox", "--n_samples", "2", "--use_ddim",
+            "true", "--timestep_respacing", "ddim100"]
+    runs = {}
+    with configuration("default"):
+        for route, env, forms, k2 in (
+                ("kernels", {}, want_forms, want_k2),
+                ("cuDNN convs and plain heads", NO_KERNELS, {}, 0)):
+            grids = []
+            with environ(**env):
+                res, counts, feats = drive_vox(f"4g, {route}", argv, forms,
+                                               k2, grids=grids)
+            runs[route] = {"feats": feats, "grids": grids,
+                           "counts": counts, "n": len(res["paths"]),
+                           "chain_s": res["sample_seconds"],
+                           "decode_s": res["decode_seconds"]}
+    k, p = runs["kernels"], runs["cuDNN convs and plain heads"]
+    worst, mean_worst, share_worst, failed = 0.0, 0.0, 0.0, []
+    for j, (kf, pf) in enumerate(zip(k["feats"], p["feats"])):
+        for plane, a, b in zip(("xy", "xz", "yz"), pf, kf):
+            d = np.abs(a - b)
+            ratio = float((d / (0.05 + 0.05 * np.abs(b))).max())
+            mean = float(d.mean())
+            worst, mean_worst = max(worst, ratio), max(mean_worst, mean)
+            if ratio > 1.0 or mean >= 5e-3:
+                failed.append(f"sample {j} {plane}")
+            print(f"4g sample {j} {plane}: without the kernels max_abs "
+                  f"{d.max():.3e}, mean_abs {mean:.3e}, {ratio:.3f} of "
+                  "K1's bf16 forward bound")
+        share = float((k["grids"][j] != p["grids"][j]).mean())
+        share_worst = max(share_worst, share)
+        print(f"4g sample {j}: voxels that differ {share:.4e} (bound "
+              f"{INT8_SHARE_BOUND:.0e})")
+        if share > INT8_SHARE_BOUND:
+            failed.append(f"sample {j} grid")
+    chain = {r: v["chain_s"] / v["n"] for r, v in runs.items()}
+    print(f"4g chain seconds per sample (DDIM-100, batch 2): with the "
+          f"kernels {chain['kernels']:.3f} s, cuDNN convs "
+          f"{chain['cuDNN convs and plain heads']:.3f} s; decode of 2 grids "
+          f"{k['decode_s']:.3f} s with K2, {p['decode_s']:.3f} s with the "
+          "plain heads")
+    if failed:
+        fail(f"4g: without the kernels, {', '.join(failed)} outside the "
+             "bound")
+    return {"chain_s_per_sample": chain,
+            "decode_s": {r: v["decode_s"] for r, v in runs.items()},
+            "launches_without": {"k1": p["counts"]["k1"],
+                                 "k2": p["counts"]["k2"]},
+            "worst_of_bound": worst, "worst_mean_abs": mean_worst,
+            "worst_voxel_share": share_worst}
 
 
 # ---------------------------------------------------------------------------
@@ -1529,10 +1626,11 @@ def drive_train(tag_dir: str, n_calls: int = 4) -> dict:
     unless every loss is finite, the last below the first, the step-100
     EMA and opt files exist and the EMA's leaf paths equal the committed
     JAX-written EMA's.  Then times `n_calls` more calls of the step the
-    CLI built (`loop.step_fn`, steps_per_call steps each) by the host
-    clock from a sync to a sync, with the kernels' launch counts set to 0
-    just before and read just after: a train step launches neither K1 nor
-    K2, and fails if it did.  Returns the numbers and the loop."""
+    CLI built (`loop.step_fn`, steps_per_call steps each) in each of
+    MODES (`modes_seconds`) by the host clock from a sync to a sync, with
+    the kernels' launch counts set to 0 just before and read just after:
+    a train step launches neither K1 nor K2, and fails if it did.
+    Returns the numbers and the loop."""
     import json as _json
     import math
     import torch
@@ -1564,25 +1662,23 @@ def drive_train(tag_dir: str, n_calls: int = 4) -> dict:
     opt = os.path.join(diff, "opt000100.pt")
     same_paths = os.path.exists(ema) and \
         ckpt.peek_paths(ema) == ckpt.peek_paths(EMA_PATH)
-    with tf32(True):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            loop.step_fn(loop.state, loop.batch, 0)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (n_calls * K)
-        counts = read_counts()
-    first = loop.state.step - n_calls * K
+    secs = modes_seconds(lambda: loop.step_fn(loop.state, loop.batch, 0),
+                         n_calls)
+    ms, ms_det = (secs[m] * 1e3 / (n_calls * K) for m in MODES)
+    counts = read_counts()
+    first = loop.state.step - 2 * n_calls * K
     print(f"train (cli.train, batch {B}, steps_per_call {K}, 100 steps, TF32 "
           f"on): main {total:.3f} s in all; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB; mean loss per dump "
           f"{[round(x, 6) for x in losses]} at steps "
           f"{[d['step'] for d in dumps]}")
-    print(f"train: the CLI's step, {n_calls} calls of {K} steps (steps "
-          f"{first}-{loop.state.step}): {ms:.3f} ms per step (host clock, "
-          f"sync to sync), {B * 1e3 / ms:.1f} samples/s; K1 launches "
-          f"{counts['k1']}, K2 launches {counts['k2']} (want 0 and 0)")
+    print(f"train: the CLI's step, {n_calls} calls of {K} steps in each "
+          f"mode, in turns (steps {first}-{loop.state.step}): "
+          f"{ms:.3f} ms per step with today's algorithms, {ms_det:.3f} ms "
+          f"with deterministic ones (host clock, sync to sync; "
+          f"{ms_det / ms:.3f}x), {B * 1e3 / ms:.1f} and "
+          f"{B * 1e3 / ms_det:.1f} samples/s; K1 launches {counts['k1']}, "
+          f"K2 launches {counts['k2']} (want 0 and 0)")
     print(f"train: TensorBoard sample hook {'on' if loop.tb else 'off'} "
           f"(tensorboardX {'present' if loop.tb else 'absent'})")
     print(f"train: ema_0.9999_000100.pt {os.path.exists(ema)}, opt000100.pt "
@@ -1595,10 +1691,112 @@ def drive_train(tag_dir: str, n_calls: int = 4) -> dict:
     if counts["k1"] or counts["k2"]:
         fail("train: a train step launched K1 or K2")
     return {"ms_per_step": ms, "samples_per_s": B * 1e3 / ms,
+            "ms_per_step_deterministic": ms_det,
             "main_s": total, "peak_bytes": peak, "losses": losses,
             "launches_train_step": {"k1": counts["k1"], "k2": counts["k2"],
-                                    "steps": n_calls * K},
+                                    "steps": 2 * n_calls * K},
             "loop": loop}
+
+
+# 6b and 8f time a train step with today's algorithms and with the
+# deterministic ones `cli.train` trains under, in turns
+MODES = ("today", "deterministic")
+
+
+def modes_seconds(call, n: int) -> dict:
+    """Seconds of `n` calls of `call` in each of MODES (TF32 on, as the
+    CLI trains), in turns today, deterministic, deterministic, today of
+    n / 2 calls each, from a sync to a sync; the launch counts are set to
+    0 first."""
+    import torch
+    from sin3dm_tpu_torch.core.rng import deterministic_algorithms
+    out = dict.fromkeys(MODES, 0.0)
+    with tf32(True):
+        reset_counts()
+        for mode in MODES + MODES[::-1]:
+            with (deterministic_algorithms() if mode == "deterministic"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n // 2):
+                    call()
+                torch.cuda.synchronize()
+                out[mode] += time.perf_counter() - t0
+    return out
+
+
+# 6e: two runs of one `cli.train` command give the same bits: diffusion
+# from the committed encoding at the tag's batch (2 calls of 20 steps),
+# and the AE stage on 8a's shape (E6_AE_ITERS iterations, the rec mesh at
+# reso 64)
+E6_TRAIN_ARGV = ["--enc_log", os.path.join(TAG, "encoding"),
+                 "--diff_batch_size", "32", "--steps_per_call", "20",
+                 "--diff_lr", "5e-4", "--ema_rate", "0.9999",
+                 "--diff_n_iters", "40", "--save_interval", "40",
+                 "--log_interval", "20", "--n_devices", "1"]
+E6_AE_ITERS = 20
+
+
+def dumped(tag: str) -> dict:
+    """Every array of every checkpoint and feat.npz under `tag`, and every
+    line of each progress.json, by (file, key)."""
+    import numpy as np
+    out = {}
+    for d, _, files in os.walk(tag):
+        for name in sorted(files):
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, tag)
+            if name.endswith((".pt", ".pth", ".npz")):
+                with np.load(path) as z:
+                    for k in z.files:
+                        out[(rel, k)] = z[k]
+            elif name == "progress.json":
+                with open(path) as fh:
+                    out[(rel, "lines")] = np.frombuffer(
+                        fh.read().encode(), np.uint8)
+    return out
+
+
+def same_bits(label: str, a: dict, b: dict) -> dict:
+    """Two runs' `dumped` arrays: the same keys, dtypes and bytes; prints
+    how many, and where they differ the first key and its max |diff|."""
+    import numpy as np
+    differ = [k for k in a if k not in b or a[k].dtype != b[k].dtype
+              or a[k].tobytes() != b[k].tobytes()]
+    differ += [k for k in b if k not in a]
+    where = ""
+    if differ:
+        k = differ[0]
+        if k in a and k in b and a[k].shape == b[k].shape:
+            d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+            where = f"; first {k}, max |diff| {d.max():.3e}"
+        else:
+            where = f"; first {k}"
+    print(f"{label}: {len(a)} arrays, {len(differ)} differ{where}")
+    return {"arrays": len(a), "differ": [list(k) for k in differ]}
+
+
+def train_repeats(tmp: str, argv, label: str) -> dict:
+    """6e. `cli.train.main(argv)` twice on two fresh tags (TF32 on and
+    deterministic algorithms, as the CLI trains): every dumped array and
+    progress line equal bit for bit."""
+    import torch
+    from sin3dm_tpu_torch.cli import train as train_cli
+    runs, secs = [], []
+    for i in range(2):
+        tag = os.path.join(tmp, f"{label} {i}")
+        with environ(SIN3DM_LOG_FORMAT="log,csv,json"):
+            t0 = time.perf_counter()
+            train_cli.main(["--tag", tag, *argv])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        runs.append(dumped(tag))
+        shutil.rmtree(tag, ignore_errors=True)
+    res = same_bits(f"6e {label}, two runs of one command ({secs[0]:.1f} "
+                    f"and {secs[1]:.1f} s)", *runs)
+    if res["differ"] or res["arrays"] < 3:
+        fail(f"6e: two runs of {label} training dumped other bits")
+    return {**res, "seconds": secs}
 
 
 def profile_train(loop, ucfg, n_steps: int = 5) -> dict:
@@ -1650,7 +1848,7 @@ AE_ACC_BAR = 0.85         # 8c, mean_tsdf_acc after AE_ITERS
 AE_SURF = 2_000_000       # near- and on-surface points of the npz
 
 
-def synth_shape_npz(path: str, seed: int = 0) -> dict:
+def synth_shape_npz(path: str, seed: int = 0, pbr: bool = False) -> dict:
     """8a. A textured analytic shape as the mesh sampler's npz, at the
     committed tag's training-grid shape inside its AABB (the committed
     ckpt_final.pth meta): a box (a tower's base) and, above it and apart
@@ -1658,8 +1856,11 @@ def synth_shape_npz(path: str, seed: int = 0) -> dict:
     exact SDF; the colour is a smooth ramp of position.  Grid points are
     the AABB's voxel centres; AE_SURF on-surface points spread by area
     over both surfaces, AE_SURF near-surface points 0.005 off them, the
-    threshold 3 voxels.  Written with np.savez, from a numpy generator
-    seeded with `seed`."""
+    threshold 3 voxels.  With `pbr`, the sdfpbr schema's eight texture
+    channels: the ramp, then analytic metallic and roughness (ramps of
+    x and z) and the unit normal (the SDF's central-difference gradient,
+    normalised) stored as the normal maps store it, 0.5 + 0.5 n.  Written
+    with np.savez, from a numpy generator seeded with `seed`."""
     import numpy as np
     from sin3dm_tpu_torch.core import checkpoint as ckpt
     from sin3dm_tpu_torch.dataio.grid import sample_grid_points_aabb
@@ -1680,9 +1881,15 @@ def synth_shape_npz(path: str, seed: int = 0) -> dict:
 
     def tex(p):
         t = (p - lo) / (hi - lo)
-        return np.stack([t[..., 0], t[..., 1],
-                         0.5 + 0.5 * np.sin(6.0 * t[..., 2])],
-                        axis=-1).astype(np.float32)
+        ch = [t[..., 0], t[..., 1], 0.5 + 0.5 * np.sin(6.0 * t[..., 2])]
+        if pbr:
+            e = np.float32(1e-3)
+            n = np.stack([sdf(p + e * u) - sdf(p - e * u)
+                          for u in np.eye(3, dtype=np.float32)], axis=-1)
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+            ch += [t[..., 0], 0.25 + 0.5 * t[..., 2],
+                   *np.moveaxis(0.5 + 0.5 * n, -1, 0)]
+        return np.stack(ch, axis=-1).astype(np.float32)
 
     rng = np.random.default_rng(seed)
     grid = sample_grid_points_aabb(aabb, 256).astype(np.float32)
@@ -1714,7 +1921,8 @@ def synth_shape_npz(path: str, seed: int = 0) -> dict:
         np.savez(fh, **arrays)
     nbytes = sum(np.asarray(v).nbytes for v in arrays.values())
     inside = float((arrays["sdf_grid"] < 0).mean())
-    print(f"ae data: {path}: grid {grid.shape[:3]} "
+    print(f"ae data{' (sdfpbr)' if pbr else ''}: {path}: grid "
+          f"{grid.shape[:3]} "
           f"({grid.shape[0] * grid.shape[1] * grid.shape[2]} points, "
           f"{inside:.4f} inside), {AE_SURF} on- and {AE_SURF} near-surface "
           f"points, threshold {threshold:.7f}, {nbytes / 2 ** 20:.1f} MiB")
@@ -1738,30 +1946,79 @@ def encoding_argv() -> list:
     return argv
 
 
-def ae_setup(npz: str, dev):
-    """(acfg, tcfg, data, meta) at the encoding args.json's width, the
-    data on `dev`."""
+def ae_setup(npz: str, dev, overrides: dict = None):
+    """(acfg, tcfg, data, meta) at the encoding args.json's width (its
+    values replaced by `overrides`), the data on `dev`."""
     import argparse
     from sin3dm_tpu_torch.core import config as cfgmod
     from sin3dm_tpu_torch.training import ae as TA
-    args = argparse.Namespace(**enc_args())
+    args = argparse.Namespace(**{**enc_args(), **(overrides or {})})
     acfg = cfgmod.ae_config_from_args(args)
     tcfg = cfgmod.ae_trainer_config_from_args(args)
     data, meta, _ = TA.load_ae_data(npz, tcfg, dev, acfg.data_type)
     return acfg, tcfg, data, meta
 
 
-def cancelled_leaf(path: str) -> bool:
+def cancelled_leaf(path: str, pbr: bool = False) -> bool:
     """A bias that an InstanceNorm right after it removes (the encoders'
-    biases, each block's in-conv bias): its grad is 0 but for roundoff."""
+    biases, each block's in-conv bias; in the `pbr` net's texture branch
+    also block 0's out-conv and shortcut biases, which block 1's input
+    norm removes): its grad is 0 but for roundoff."""
     parts = path.split("/")
-    return parts[-1] == "b" and (parts[0] in ("geo_encoder", "tex_encoder")
-                                 or "in_conv" in parts)
+    return parts[-1] == "b" and (
+        parts[0] in ("geo_encoder", "tex_encoder") or "in_conv" in parts
+        or (pbr and parts[:2] == ["tex_convs", "0"]
+            and parts[2] in ("out_conv", "shortcut")))
 
 
-def ae_step_card_vs_host(npz: str) -> dict:
-    """8b. One AE train step at the encoding args.json's width from the
-    committed ckpt_final.pth's params, a warm AdamW state (WARM_COUNT,
+@contextlib.contextmanager
+def branch(taken: dict, record: bool):
+    """The block's piecewise ops, `torch.relu`, `torch.sign` and
+    `Tensor.abs` (the heads' ReLUs, the L1 losses), recording which side
+    of 0 each call's every element took (on the host, in call order, into
+    `taken`), or taking the recorded sides in that order (relu as z *
+    mask, abs as x * sign, sign as the recorded sign), so that a second
+    evaluation follows the first one's branch everywhere."""
+    import torch
+    real = {"relu": torch.relu, "sign": torch.sign,
+            "abs": torch.Tensor.abs}
+    for k in real:
+        taken.setdefault(k, [])
+    replay = {k: iter(v) for k, v in taken.items()}
+
+    def relu(z):
+        if record:
+            taken["relu"].append((z > 0).cpu())
+            return real["relu"](z)
+        return z * next(replay["relu"]).to(device=z.device, dtype=z.dtype)
+
+    def sign(x):
+        if record:
+            taken["sign"].append(real["sign"](x).to(torch.int8).cpu())
+            return real["sign"](x)
+        return next(replay["sign"]).to(device=x.device, dtype=x.dtype)
+
+    def abs_(x):
+        if record:
+            taken["abs"].append(real["sign"](x).to(torch.int8).cpu())
+            return real["abs"](x)
+        return x * next(replay["abs"]).to(device=x.device, dtype=x.dtype)
+
+    torch.relu, torch.sign, torch.Tensor.abs = relu, sign, abs_
+    try:
+        yield
+    finally:
+        torch.relu, torch.sign, torch.Tensor.abs = (
+            real["relu"], real["sign"], real["abs"])
+
+
+def ae_step_card_vs_host(npz: str, overrides: dict = None,
+                         ckpt_path: str = None,
+                         same_branch: bool = False) -> dict:
+    """8b (8g, 8h: the `base` and `pbr` nets of `overrides`, from the
+    params their CLI run trained, `ckpt_path`, with `same_branch`).  One
+    AE train step at the encoding args.json's width from the committed
+    ckpt_final.pth's params, a warm AdamW state (WARM_COUNT,
     mu and nu of the grads' sizes) and the same window offsets (drawn by
     numpy), on the card with TF32 off and on this machine's CPU with the
     port's plain code.  Holds 6a's tolerances: loss terms 1e-5 relative;
@@ -1771,19 +2028,27 @@ def ae_step_card_vs_host(npz: str) -> dict:
     Prints the worst leaf of each.  A second witness, the same gradient
     in fp64 on the CPU, says which side an error lies on, as in 6a: the
     card's grad is held to it at 1e-4 of each leaf's max |g| as well,
-    and both sides' distances from it are printed at the worst leaf."""
+    and both sides' distances from it are printed at the worst leaf.
+    With `same_branch` the host's fp32 step runs first and the card's and
+    the fp64 step take its branch of every ReLU of the heads and every
+    sign of the L1 losses (`branch`): a value within roundoff of 0 that
+    one side rounds the other way moves a gradient by a whole row's
+    share, beyond 1e-4 of its leaf's largest in fp32 on either side
+    (phase 8g's first readings), so the gates then measure rounding
+    alone."""
     import dataclasses
     import numpy as np
     import torch
     from sin3dm_tpu_torch.compat.from_jax import ae_params_from_jax
     from sin3dm_tpu_torch.core import checkpoint as ckpt
     from sin3dm_tpu_torch.training import ae as TA
-    tree, _ = ckpt.load_tree(os.path.join(TAG, "encoding",
-                                          "ckpt_final.pth"), "params")
+    tree, _ = ckpt.load_tree(ckpt_path or os.path.join(
+        TAG, "encoding", "ckpt_final.pth"), "params")
     rng = np.random.default_rng(8)
-    out, offsets = {}, None
-    for dev in (torch.device("cuda"), torch.device("cpu")):
-        acfg, tcfg, data, meta = ae_setup(npz, dev)
+    out, offsets, taken = {}, None, {}
+    devs = ("cuda", "cpu")
+    for dev in map(torch.device, devs[::-1] if same_branch else devs):
+        acfg, tcfg, data, meta = ae_setup(npz, dev, overrides)
         if offsets is None:
             n_grid, n_surf = TA.batch_split(tcfg)
             offsets = tuple(
@@ -1800,13 +2065,14 @@ def ae_step_card_vs_host(npz: str) -> dict:
         st.nu.copy_(torch.from_numpy(nu))
         st.count = st.sched_count = st.step = WARM_COUNT
         t0 = time.perf_counter()
-        with tf32(False):
+        with tf32(False), (branch(taken, dev.type == "cpu")
+                           if same_branch else contextlib.nullcontext()):
             terms, g = TA.compute_grads(st, acfg, tcfg, data,
                                         meta["threshold"], offsets)
             TA.apply_grads(st, g, tcfg)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        out["card" if not out else "host"] = {
+        out["card" if dev.type == "cuda" else "host"] = {
             "terms": {k: v.cpu() for k, v in terms.items()}, "g": g.cpu(),
             "flat": st.flat.cpu(), "mu": st.mu.cpu(), "nu": st.nu.cpu(),
             "seconds": time.perf_counter() - t0, "state": st}
@@ -1817,16 +2083,20 @@ def ae_step_card_vs_host(npz: str) -> dict:
     p32 = ae_params_from_jax(tree, "cpu")
     leaves = [v.double().requires_grad_() for _, v in
               ckpt.leaves_with_paths(p32)]
-    data64 = TA.AEData(*[a.double() if a is not None and a.is_floating_point()
-                         else a for a in data])
-    _, g64 = TA.compute_grads(
-        dataclasses.replace(ref, params=ckpt.unflatten_like(p32, leaves)),
-        acfg, tcfg, data64, meta["threshold"], offsets)
+    data64 = TA.AEData(*[None if a is None else a.cpu().double()
+                         if a.is_floating_point() else a.cpu()
+                         for a in data])
+    with (branch(taken, False) if same_branch
+          else contextlib.nullcontext()):
+        _, g64 = TA.compute_grads(
+            dataclasses.replace(ref, params=ckpt.unflatten_like(p32, leaves)),
+            acfg, tcfg, data64, meta["threshold"], offsets)
     del data, data64
     secs64 = time.perf_counter() - t0
+    pbr = acfg.enc_net_type == "pbr"
     w64 = {side: {p: e for p, e in _errs(ref, out[side]["g"].double(), g64,
                                          True).items()
-                  if not cancelled_leaf(p)}
+                  if not cancelled_leaf(p, pbr)}
            for side in ("card", "host")}
     terms_err = max(((c["terms"][k] - v).abs() / v.abs()).max().item()
                     for k, v in h["terms"].items())
@@ -1835,9 +2105,18 @@ def ae_step_card_vs_host(npz: str) -> dict:
     top = h["g"].abs().max().item()
     cancel = {p: max(cg[p].abs().max().item(),
                      hg[p].abs().max().item()) / top
-              for p in hg if cancelled_leaf(p)}
+              for p in hg if cancelled_leaf(p, pbr)}
     ge = {p: e for p, e in _errs(ref, c["g"], h["g"], True).items()
           if p not in cancel}
+    top64 = g64.abs().max().item()
+    of_top = {p: v.abs().max().item() / top64
+              for p, v in ckpt.leaves_with_paths(ref.tree(g64))}
+    for name, e in (("card vs host", ge), ("card vs fp64", w64["card"]),
+                    ("host vs fp64", w64["host"])):
+        print(f"  grad {name}, the worst leaves (the leaf's largest fp64 "
+              "|g| over the whole gradient's): " + ", ".join(
+                  f"{p} {e[p]:.3e} ({of_top[p]:.1e})"
+                  for p in sorted(e, key=e.get)[::-1][:4]))
     g_leaf = max(ge, key=ge.get)
     c_leaf = max(cancel, key=cancel.get)
     checks = {"terms": (terms_err, ", ".join(h["terms"]), 1e-5),
@@ -1846,8 +2125,10 @@ def ae_step_card_vs_host(npz: str) -> dict:
               "params": _worst(ref, c["flat"], h["flat"], False) + (1e-5,),
               "mu": _worst(ref, c["mu"], h["mu"], True) + (1e-4,),
               "nu": _worst(ref, c["nu"], h["nu"], True) + (2e-4,)}
-    print(f"ae train step card vs host (batch {tcfg.enc_batch_size}, the "
-          f"committed AE's params, warm AdamW at count {WARM_COUNT}, TF32 "
+    print(f"ae train step card vs host ({acfg.enc_net_type} net, batch "
+          f"{tcfg.enc_batch_size}, "
+          f"{'the CLI run' if ckpt_path else 'the committed AE'}'s "
+          f"params, warm AdamW at count {WARM_COUNT}, TF32 "
           f"off, offsets {offsets}): card {c['seconds']:.3f} s, host CPU "
           f"{h['seconds']:.3f} s (both with the first call's set-up)")
     failed = []
@@ -2118,9 +2399,11 @@ def faulty_heads(params) -> dict:
                 "first", 0, w0.to(torch.float8_e4m3fn).float())}
 
 
-def ae_k2_trained(trainer) -> dict:
-    """8e. K2 (bf16) with the trainer's packed weights over evaluate's
-    first x-slab of each head's features, against the same trained params
+def ae_k2_trained(trainer, heads=("geo_decoder", "tex_decoder")) -> dict:
+    """8e (8h: pbr's four heads). K2 (bf16) with the trainer's packed
+    weights over evaluate's first x-slab of each head's features (the geo
+    planes' for the geo head, the texture planes' for the others),
+    against the same trained params
     (the train state's raw leaves, which must equal ckpt_final.pth's) on
     the card: the trainer's pack must equal a pack made from those leaves
     now, and its launch the launch with that pack, bit for bit (a stale
@@ -2157,7 +2440,8 @@ def ae_k2_trained(trainer) -> dict:
     out = {}
     with torch.no_grad():
         gp, tp = trainer._planes(trainer.encode())
-        for head, planes in (("geo_decoder", gp), ("tex_decoder", tp)):
+        for head in heads:
+            planes = gp if head == "geo_decoder" else tp
             _, x = next(ae.grid_slab_features(
                 planes, tuple(trainer.meta["grid_shape"])))
             pk, pf = trainer.params[head]["k2"], fresh[head]["k2"]
@@ -2233,11 +2517,12 @@ def ae_k2_trained(trainer) -> dict:
 def ae_step_time(trainer, n_steps: int = 50, warm: int = 5,
                  prof_steps: int = 5) -> dict:
     """8d and 8f. The CLI's AE step on the trained trainer's state (TF32
-    on, as the CLI trains): `warm` steps, then `n_steps` timed by the host
-    clock from a sync to a sync with the launch counts set to 0 just
-    before and read just after (K1 and K2: 0) and the peak device memory
-    over them; points/s; the step's operations against the TF32 bound;
-    then `prof_steps` steps under torch.profiler."""
+    on, as the CLI trains): `warm` steps, then `n_steps` in each of MODES
+    (`modes_seconds`) timed by the host clock from a sync to a sync with
+    the launch counts set to 0 just before and read just after (K1 and
+    K2: 0) and the peak device memory over them; points/s; the step's
+    operations against the TF32 bound; then `prof_steps` steps under
+    torch.profiler."""
     import torch
     from sin3dm_tpu_torch.training import ae as TA
     st, tcfg = trainer.state, trainer.tcfg
@@ -2250,17 +2535,18 @@ def ae_step_time(trainer, n_steps: int = 50, warm: int = 5,
 
     with tf32(True):
         run(warm)
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        run(n_steps)
-        ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs = modes_seconds(lambda: step(st, trainer.data, 0), n_steps)
+    ms, ms_det = (secs[m] * 1e3 / n_steps for m in MODES)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with tf32(True):
         fl = ae_step_flops(trainer.acfg, tcfg, trainer.meta["featmap_size"])
         pts = tcfg.enc_batch_size * 1e3 / ms
-        print(f"ae step: {n_steps} steps at batch {tcfg.enc_batch_size}: "
-              f"{ms:.3f} ms per step (host clock, sync to sync), "
+        print(f"ae step: {n_steps} steps at batch {tcfg.enc_batch_size} in "
+              f"each mode, in turns: {ms:.3f} ms per step with today's "
+              f"algorithms, {ms_det:.3f} ms with deterministic ones (host "
+              f"clock, sync to sync; {ms_det / ms:.3f}x), "
               f"{pts:.1f} points/s; peak device memory {peak / 2 ** 30:.3f} "
               f"GiB; K1 launches {counts['k1']}, K2 launches {counts['k2']} "
               f"(want 0 and 0); {fl['step'] / 1e12:.4f} TFLOP per step "
@@ -2281,13 +2567,108 @@ def ae_step_time(trainer, n_steps: int = 50, warm: int = 5,
               f"{1 - p['busy_ms'] / ms:.1%}), {p['ops_per_step']:.0f} "
               "device operations per step")
     return {"ms_per_step": ms, "points_per_s": pts, "peak_bytes": peak,
+            "ms_per_step_deterministic": ms_det,
             "launches": {"k1": counts["k1"], "k2": counts["k2"],
-                         "steps": n_steps},
+                         "steps": 2 * n_steps},
             "flops": fl["step"], "bound_ms": fl["bound_ms"], **p}
 
 
+# 8g, 8h: the `base` and `pbr` nets at the committed encoding's width,
+# on 8a's shape (pbr's with its five more channels), the CLI cut to
+# AE_VARIANT_ITERS iterations and its rec mesh to reso 64
+AE_VARIANTS = {"8g": {"enc_net_type": "base", "data_type": "sdftex"},
+               "8h": {"enc_net_type": "pbr", "data_type": "sdfpbr"}}
+AE_VARIANT_ITERS = 60
+PBR_HEADS = {"geo_decoder": 1, "rgb_decoder": 3, "mr_decoder": 2,
+             "normal_decoder": 3}
+
+
+def ae_variant(label: str, npz: str, tmp: str) -> dict:
+    """8g/8h. The net of AE_VARIANTS[label]: a short `cli.train
+    --only_enc` (losses finite and falling, ckpt_final.pth and feat.npz
+    written); from the params it trained, as 8b from the committed AE's,
+    one AE train step card against host and fp64 at 8b's gates
+    (`ae_step_card_vs_host`); its encoding decoded at reso 64 with the launch
+    counts set to 0 just before and read just after: `base`'s plain MLP
+    heads launch no K2, as in JAX; `pbr`'s four skip heads launch K2 once
+    a head and x-slab (cout 1, 3, 2, 3), by shape, and 8e's checks hold
+    on each trained head; K2 at cout 2 over the geo slab's rows, timed as
+    phase 3 times it."""
+    import math
+    import numpy as np
+    import torch
+    from sin3dm_tpu_torch.cli import train as train_cli
+    from sin3dm_tpu_torch.dataio.grid import grid_resolutions
+    over = AE_VARIANTS[label]
+    net = over["enc_net_type"]
+    tag = os.path.join(tmp, f"tag {net}")
+    argv = (["--tag", tag, "--data_path", npz] + encoding_argv()
+            + ["--enc_net_type", net, "--data_type", over["data_type"],
+               "--enc_n_iters", str(AE_VARIANT_ITERS), "--log_interval",
+               "20", "--rec_reso", "64", "--only_enc", "--n_devices", "1"])
+    with environ(SIN3DM_LOG_FORMAT="log,csv,json"):
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv).ae
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cli_counts = read_counts()
+    enc = os.path.join(tag, "encoding")
+    with open(os.path.join(enc, "progress.json")) as fh:
+        losses = [json.loads(ln)["ae/loss"] for ln in fh if ln.strip()]
+    written = all(os.path.exists(os.path.join(enc, n))
+                  for n in ("ckpt_final.pth", "feat.npz"))
+    step = ae_step_card_vs_host(npz, over,
+                                os.path.join(enc, "ckpt_final.pth"),
+                                same_branch=True)
+    heads = PBR_HEADS if net == "pbr" else {}
+    aabb = np.asarray(trainer.meta["aabb"], np.float64)
+    nx, ny, nz = (int(v) for v in grid_resolutions(aabb, 64))
+    want = {}
+    for x0 in range(0, nx, 8):
+        for h, cout in heads.items():
+            cin = trainer.params[h]["first"][0]["w"].shape[0]
+            key = shape_key(min(8, nx - x0) * ny * nz, cin, cout)
+            want[key] = want.get(key, 0) + 1
+    with torch.no_grad():
+        feat = trainer.encode()
+        reset_counts()
+        grid = trainer.decode_grid(feat, 64)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    inside = float((grid[..., 0] < 0).mean())
+    print(f"{label} {net} net: cli.train --only_enc, {AE_VARIANT_ITERS} "
+          f"iterations ({secs:.1f} s): AE loss per log "
+          f"{[round(x, 6) for x in losses]}; ckpt_final.pth and feat.npz "
+          f"written {written}; K2 launches in the run {cli_counts['k2']}; "
+          f"decode at reso 64 {grid.shape}: inside {inside:.4f}, finite "
+          f"{bool(np.isfinite(grid).all())}, K1 {counts['k1']}, K2 by "
+          f"shape {counts['k2_shapes']} (want {want})")
+    ok = (len(losses) >= 2 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and written
+          and bool(np.isfinite(grid).all()) and 0.0 < inside < 1.0
+          and counts["k1"] == 0 and counts["k2_shapes"] == want
+          and (net == "pbr" or cli_counts["k2"] == 0))
+    if not ok:
+        fail(f"{label}: the {net} net did not meet its checks")
+    out = {"net": net, "step_card_vs_host": step, "cli_s": secs,
+           "losses": losses, "launches_cli": cli_counts["k2"],
+           "launches_decode": counts["k2"], "decode_by_shape": want,
+           "inside_share": inside}
+    if heads:
+        out["k2_trained"] = ae_k2_trained(trainer, tuple(heads))
+        g = trainer.meta["grid_shape"]
+        out["k2_cout2"] = check_k2_shapes(trainer.params, (
+            ("pbr mr head over the geo slab", "mr_decoder",
+             8 * g[1] * g[2]),))["pbr mr head over the geo slab"]
+        out["launches_cout2"] = sum(
+            n for c in (cli_counts, counts)
+            for k, n in c["k2_shapes"].items() if k.endswith("-> 2"))
+    return out
+
+
 def phase8() -> dict:
-    """8a-8f in a temporary directory."""
+    """8a-8h, and 6e's AE stage, in a temporary directory."""
     import torch
     tmp = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_ae_")
     try:
@@ -2296,6 +2677,10 @@ def phase8() -> dict:
         synth = synth_shape_npz(npz)
         print(f"ae data: written in {time.perf_counter() - t0:.1f} s")
         step_check = ae_step_card_vs_host(npz)
+        repeats = train_repeats(tmp, [
+            "--data_path", npz, *encoding_argv(), "--enc_n_iters",
+            str(E6_AE_ITERS), "--log_interval", "10", "--rec_reso", "64",
+            "--only_enc", "--n_devices", "1"], "ae")
         trained = drive_ae_train(os.path.join(tmp, "tag"), npz)
         res = trained.pop("result")
         trainer = res.ae
@@ -2307,11 +2692,18 @@ def phase8() -> dict:
                                tmp,
                                enc_args()["rec_reso"])
         timing = ae_step_time(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        variants = {"8g": ae_variant("8g", npz, tmp)}
+        torch.cuda.empty_cache()
+        pbr = os.path.join(tmp, "shape_pbr.npz")
+        synth_shape_npz(pbr, pbr=True)
+        variants["8h"] = ae_variant("8h", pbr, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {"data": synth, "step_card_vs_host": step_check, **trained,
            "k2_trained": k2, "launches_by_stage": launches,
-           "step": timing}
+           "step": timing, "repeats": repeats, "variants": variants}
     print("ae: " + json.dumps(out, default=float))
     return out
 
@@ -3772,10 +4164,11 @@ def p12_free_port() -> int:
 
 
 def p12_processes(argv, n: int, label: str, timeout: int = 300,
-                  **env) -> list:
+                  local=None, **env) -> list:
     """`argv` in n processes started by hand with the SIN3DM_DIST
     variables over a `tcp://localhost` coordinator (process r with
-    SIN3DM_PROCESS_ID r, so card r where each has one) and `env`; fails
+    SIN3DM_PROCESS_ID r, so card r where each has one, or card local[r]
+    where `local` gives each its SIN3DM_LOCAL_RANK) and `env`; fails
     where one exits non-zero.  Returns their stdouts and the seconds
     from the start to the last one's exit."""
     port = p12_free_port()
@@ -3785,7 +4178,9 @@ def p12_processes(argv, n: int, label: str, timeout: int = 300,
         text=True, env=dict(
             os.environ, SIN3DM_DIST="1",
             SIN3DM_COORDINATOR=f"localhost:{port}",
-            SIN3DM_NUM_PROCESSES=str(n), SIN3DM_PROCESS_ID=str(r), **env))
+            SIN3DM_NUM_PROCESSES=str(n), SIN3DM_PROCESS_ID=str(r),
+            **({} if local is None else
+               {"SIN3DM_LOCAL_RANK": str(local[r])}), **env))
         for r in range(n)]
     outs = []
     try:
@@ -4255,15 +4650,12 @@ def p13_topology(n: int) -> dict:
 
 
 # 13f: `cli.train` from the committed encoding at the tag's batch, two
-# single-step calls, as the bootstrap and `--n_devices` both run it
-# Their EMAs, element by element (absolute): cuDNN's fp32 weight gradient rounds differently from run to run (12f's
-# and 13f's gradient bits differ from 12d's and 13d's), and an AdamW
-# step moves each parameter by at most about lr = 5e-4, so after 2 steps
-# the two runs' parameters lie at most 2 x 2 lr = 2e-3 apart and their
-# EMAs (rate 0.9999) 1e-4 x 2e-3 = 2e-7, plus a rounding of the EMA
-# (6e-8 at |EMA| <= 1): 1e-6 bounds that with room.  The step's losses,
-# a forward of the same draws, must agree bit for bit.
-P13_EMA_TOL = 1e-6
+# single-step calls, twice through n bootstrapped processes and once
+# through `--n_devices n`; 13h: once more through n bootstrapped processes
+# with their ids permuted over the cards (process r on card n-1-r, by
+# SIN3DM_LOCAL_RANK).  Training runs under deterministic algorithms, so
+# every dumped array and progress line must equal the first run's bit
+# for bit.
 P13_TRAIN_ARGV = ["--enc_log", os.path.join(TAG, "encoding"),
                   "--diff_batch_size", "32", "--steps_per_call", "1",
                   "--diff_lr", "5e-4", "--ema_rate", "0.9999",
@@ -4272,52 +4664,53 @@ P13_TRAIN_ARGV = ["--enc_log", os.path.join(TAG, "encoding"),
 
 
 def p13_train_cli(tmp: str, n: int) -> dict:
-    """13f, `cli.train`: the same command through n processes started by
-    hand (`SIN3DM_DIST`) and through `--n_devices n` from this process
-    (`parallel.spawn`), both one rank a card: every dumped value equal
-    bit for bit, the written EMAs within P13_EMA_TOL."""
-    import numpy as np
+    """13f and 13h, `cli.train`: the same command through n processes
+    started by hand (`SIN3DM_DIST`) twice, through `--n_devices n` from
+    this process (`parallel.spawn`), and through n processes started by
+    hand with process r on card n-1-r (`SIN3DM_LOCAL_RANK`), each one rank
+    a card over NCCL: every dumped array and progress line bit for bit
+    the first run's, and each permuted process on the card it was
+    given."""
     from sin3dm_tpu_torch.cli import train as train_cli
-    from sin3dm_tpu_torch.core import checkpoint as ckpt
-    tags = {k: os.path.join(tmp, f"train {k}") for k in ("boot", "spawn")}
     fmt = {"SIN3DM_LOG_FORMAT": "log,csv,json"}
-    outs, boot_s = p12_processes(
-        [sys.executable, "-m", "sin3dm_tpu_torch.cli.train", "--tag",
-         tags["boot"], *P13_TRAIN_ARGV], n, "13f cli.train", **fmt)
+    perm = list(range(n))[::-1]
+    runs, secs, printed = {}, {}, {}
+    for k, local in (("boot", None), ("boot again", None),
+                     ("permuted", perm)):
+        tag = os.path.join(tmp, f"train {k}")
+        outs, secs[k] = p12_processes(
+            [sys.executable, "-m", "sin3dm_tpu_torch.cli.train", "--tag",
+             tag, *P13_TRAIN_ARGV], n, f"13f cli.train ({k})", local=local,
+            **fmt)
+        printed[k] = [ln for o in outs for ln in o.splitlines()
+                      if "data group" in ln or ln.startswith("process ")]
+        runs[k] = dumped(tag)
+    tag = os.path.join(tmp, "train spawn")
     with environ(**fmt):
         t0 = time.perf_counter()
-        train_cli.main(["--tag", tags["spawn"], *P13_TRAIN_ARGV,
-                        "--n_devices", str(n)])
-        spawn_s = time.perf_counter() - t0
-    losses, emas = {}, {}
-    for k, tag in tags.items():
-        diff = os.path.join(tag, "diffusion")
-        with open(os.path.join(diff, "progress.json")) as fh:
-            losses[k] = [json.loads(ln) for ln in fh if ln.strip()]
-        emas[k] = ckpt.load_tree(os.path.join(diff, "ema_0.9999_000002.pt"))[0]
-    pairs = list(zip(ckpt.leaves_with_paths(emas["boot"]),
-                     ckpt.leaves_with_paths(emas["spawn"])))
-    if [pa for (pa, _), _ in pairs] != [pb for _, (pb, _) in pairs]:
-        fail("13f: the two runs' EMAs have other leaves")
-    same_ema = all((a == b).all() for (_, a), (_, b) in pairs)
-    ema_err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in pairs)
-    loss = {k: [d["loss"] for d in v if "loss" in d]
-            for k, v in losses.items()}
-    printed = [ln for ln in outs[0].splitlines() if "data group" in ln]
-    print(f"13f cli.train: {n} bootstrapped processes ({boot_s:.1f} s) and "
-          f"--n_devices {n} ({spawn_s:.1f} s), batch 32, 2 steps: losses "
-          f"{loss['boot']} and {loss['spawn']}, every dumped value equal: "
-          f"{losses['boot'] == losses['spawn']}; the EMAs within "
-          f"{ema_err:.3e} (tol {P13_EMA_TOL:.0e}; bit for bit: {same_ema}); "
-          f"rank 0 printed {printed}")
-    if not loss["boot"] or losses["boot"] != losses["spawn"] \
-            or ema_err > P13_EMA_TOL \
-            or not any("backend nccl" in ln for ln in printed):
-        fail("13f: the bootstrapped cli.train is not --n_devices' over "
+        train_cli.main(["--tag", tag, *P13_TRAIN_ARGV, "--n_devices",
+                        str(n)])
+        secs["spawn"] = time.perf_counter() - t0
+    runs["spawn"] = dumped(tag)
+    res = {k: same_bits(f"13{'h' if k == 'permuted' else 'f'} cli.train, "
+                        f"{k} ({secs[k]:.1f} s) against the first "
+                        f"bootstrapped run ({secs['boot']:.1f} s)",
+                        runs["boot"], runs[k])
+           for k in ("boot again", "spawn", "permuted")}
+    placed = [f"process {r} of {n}: cuda:{perm[r]} (local index {perm[r]} "
+              f"($SIN3DM_LOCAL_RANK))" in printed["permuted"]
+              for r in range(n)]
+    nccl = {k: any("backend nccl" in ln for ln in v)
+            for k, v in printed.items()}
+    print(f"13h: the permuted processes on the cards they were given: "
+          f"{placed}; lines {printed['permuted']}")
+    print(f"13f: NCCL in each bootstrapped run: {nccl}")
+    if any(r["differ"] for r in res.values()) or not all(placed) \
+            or not all(nccl.values()):
+        fail("13f/13h: the bootstrapped cli.train runs are not bit for bit "
+             "one another's and --n_devices', or not on their cards over "
              "NCCL")
-    return {"losses": loss["boot"], "seconds": boot_s,
-            "spawn_seconds": spawn_s, "ema_max_abs_diff": ema_err,
-            "ema_bits_equal": same_ema}
+    return {"seconds": secs, "bits": res, "permuted_placed": placed}
 
 
 def p13_sample_cli(tmp: str, n: int) -> dict:
@@ -4626,6 +5019,9 @@ def main(argv=None) -> int:
                                              want_k2, occupancy=False)
     check_inpaint(feats, feats[0][0].shape[1])
 
+    # 4g. the kernels' opt-out switches against the kernels
+    opt_out = phase4g(want(100), want_k2)
+
     # 4e. the mesh path, default configuration
     # one batch-2 chain: the chunk is min(--pipeline_chunk, the diffusion
     # args.json's diff_batch_size (32), --n_samples)
@@ -4669,6 +5065,7 @@ def main(argv=None) -> int:
             args6))
         del loop
         torch.cuda.empty_cache()
+        repeats6 = train_repeats(train_dir, E6_TRAIN_ARGV, "diffusion")
         ucfg6 = cli._unet_config(args6)
         with configuration("default"):
             want6 = {f: n * 10 for f, n in k1_launches_by_form(ucfg6).items()}
@@ -4681,7 +5078,9 @@ def main(argv=None) -> int:
         shutil.rmtree(train_dir, ignore_errors=True)
     print("train: " + json.dumps({
         "step_card_vs_host": step_check, **trained,
-        "profile": train_prof, "sample_launches": counts6}))
+        "profile": train_prof, "sample_launches": counts6,
+        "repeats": repeats6}))
+    print("kernels' opt-outs (4g): " + json.dumps(opt_out))
 
     # 8. AE training at the encoding's full width
     ae8 = phase8()
@@ -4766,6 +5165,8 @@ def main(argv=None) -> int:
         row("conv3x3_rollout", src, "sin3dm_tpu/ops/fused_conv.py:177",
             main_counts["k1"], k1, **{k: k1[k] for k in lib_keys},
             launches_train_step=trained["launches_train_step"]["k1"],
+            launches_without_kernels=opt_out["launches_without"]["k1"],
+            chain_s_per_sample_ddim100=opt_out["chain_s_per_sample"],
             launches_sample_after_training=counts6["k1"],
             launches_serving=served["total"]["k1"],
             launches_serving_by_request={
@@ -4800,6 +5201,7 @@ def main(argv=None) -> int:
             k2, device_ms=k2["device_ms"],
             library_device_ms=k2["library_device_ms"],
             launches_vox=main_counts["k2"], launches_mesh=mesh_counts["k2"],
+            launches_without_kernels=opt_out["launches_without"]["k2"],
             launches_ae_train=ae8["launches"]["k2"],
             launches_ae_evaluate=ae8["launches_by_stage"]["evaluate"],
             launches_ae_rec=ae8["launches_by_stage"]["rec"],
@@ -4819,6 +5221,14 @@ def main(argv=None) -> int:
             launches_gpu_id_run=by_card and by_card["gpu_id_run"]["k2"],
             ms_per_slab_by_card=by_card and {
                 c: t["k2_ms_per_slab"] for c, t in by_card["times"].items()}),
+        row("skip_mlp pbr mr head [376832, 64] -> 2 (phase 8h)",
+            "sin3dm_tpu_torch/csrc/fused_mlp.cu",
+            "sin3dm_tpu/ops/fused_mlp.py:79",
+            ae8["variants"]["8h"]["launches_cout2"],
+            ae8["variants"]["8h"]["k2_cout2"],
+            device_ms=ae8["variants"]["8h"]["k2_cout2"]["device_ms"],
+            library_device_ms=ae8["variants"]["8h"]["k2_cout2"][
+                "library_device_ms"]),
         row("skip_mlp geo head [2^20, 64] -> 1 (evaluate's surface chunk)",
             "sin3dm_tpu_torch/csrc/fused_mlp.cu",
             "sin3dm_tpu/ops/fused_mlp.py:79",
@@ -4857,7 +5267,13 @@ def main(argv=None) -> int:
           "'launches_gpu_id_run' 13g's --vox run on the last card, and "
           "'ms_per_forward_by_card' / 'ms_per_slab_by_card' 13g's times "
           "by events on each card (K1 default form at batch 2, K2 both "
-          "heads)")
+          "heads); 'launches_without_kernels' 4g's --vox DDIM-100 run "
+          "under SIN3DM_FUSED_CONV=0 SIN3DM_FUSED_HEADS=0 (0), and "
+          "'chain_s_per_sample_ddim100' its chain seconds per sample "
+          "beside the kernels' run; the row of pbr's mr head (cout 2) "
+          "counts its launches in phase 8h's CLI run and reso-64 decode, "
+          "by the wrapper's count by shape, and times it over the geo "
+          "slab's rows")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

@@ -20,9 +20,14 @@ torso with fp32 GroupNorm statistics (`SIN3DM_SAMPLE_DTYPE=train` keeps
 the args.json dtype) and bf16 operands in the decode heads
 (`SIN3DM_DECODE_BF16=0` keeps fp32).  `SIN3DM_STATS_CHAIN=1` and
 `SIN3DM_FUSED_ACT=1` select the UNet's opt-in configurations
-(`models/unet.py`).  `--inpaint` (DDIM only) keeps the tag's own
-`feat.npz` (or `--inpaint_feat`) outside the box `--inpaint_region` and
-regenerates inside it.
+(`models/unet.py`).  The kernels' opt-outs, as in JAX:
+`SIN3DM_FUSED_CONV=0` runs the UNet's 3x3 convs through cuDNN (the
+training forward's convs) in place of K1, and then the opt-in
+configurations do not apply; `SIN3DM_FUSED_HEADS=0` decodes with the
+plain skip heads in place of K2 (`models/autoencoder.py`).  Neither is a
+fallback: a kernel that fails raises.  `--inpaint` (DDIM only) keeps the
+tag's own `feat.npz` (or `--inpaint_feat`) outside the box
+`--inpaint_region` and regenerates inside it.
 
 Several devices (0 = every card): `--sample_devices N` starts N ranks
 (`parallel.spawn`; N at most --n_samples), rank r draws and decodes its
@@ -116,6 +121,10 @@ def _unet_config(args, spatial_group=None):
     ucfg = cfgmod.unet_config_from_args(args)
     if spatial_group is not None:
         ucfg = ucfg._replace(spatial_group=spatial_group)
+    fused = os.environ.get("SIN3DM_FUSED_CONV", "1") != "0"
+    ucfg = ucfg._replace(fused_conv=fused)
+    print("UNet 3x3 convs: " + ("K1" if fused else
+                                "cuDNN (SIN3DM_FUSED_CONV=0)"))
     if os.environ.get("SIN3DM_SAMPLE_DTYPE", "bf16") == "bf16":
         ucfg = ucfg._replace(compute_dtype=torch.bfloat16, fast_norm=True)
         print("sampling in bfloat16 + fast_norm (set "

@@ -28,9 +28,19 @@ by hand with `SIN3DM_DIST=1` and the coordinator's variables
 Precision: `main` lets cuDNN convolutions and matmuls use TF32 for fp32
 operands while it trains, both stages (and restores the flags after),
 the card's counterpart of the TPU's default single-pass precision for
-fp32 operands, under which the committed checkpoints were trained.  The
-library functions below the CLI touch no such global flag: tests and
-`chip_smoke.py` choose.
+fp32 operands, under which the committed checkpoints were trained.
+
+Determinism: `main` trains with deterministic algorithms only, both
+stages and on every rank (`core.rng.deterministic_algorithms`, restored
+after), so one command repeats bit for bit on the same cards, as the
+JAX package does by construction and the reference's `seed_all` set
+cuDNN to.  There is no switch to turn it off.  It sets
+`CUBLAS_WORKSPACE_CONFIG` (":4096:8") where unset, which takes only
+before the process's first cuBLAS call: a program that calls `main` after
+its own matmuls sets it at its start.
+
+The library functions below the CLI touch no such global flag: tests
+and `chip_smoke.py` choose.
 """
 
 from __future__ import annotations
@@ -177,10 +187,11 @@ def _diffusion_rank(group, args) -> dict:
     """One spawned rank of diffusion training: {"rank", "step", the
     parameters' sha256 (equal on every rank)}."""
     import hashlib
-    from ..core.rng import seed_all
+    from ..core.rng import deterministic_algorithms, seed_all
     seed_all(0)
     _tf32(True)
-    loop = train_diffusion(args, group)
+    with deterministic_algorithms():
+        loop = train_diffusion(args, group)
     st = loop.state
     return {"rank": group.rank, "step": st.step, "params_sha256":
             hashlib.sha256(st.flat.detach().cpu().numpy().tobytes())
@@ -199,38 +210,42 @@ def diffusion_ranks(args) -> int:
 
 
 def main(argv=None) -> TrainResult:
-    """Train as the flags say, with TF32 on for the call (the flags are
-    restored after it): the AE unless --enc_log names a trained one, then
-    diffusion unless --only_enc, on several ranks as `--n_devices` or the
-    `SIN3DM_DIST` bootstrap says (see the module doc)."""
-    from ..core.rng import seed_all
+    """Train as the flags say, with TF32 on and deterministic algorithms
+    only for the call (the flags are restored after it): the AE unless
+    --enc_log names a trained one, then diffusion unless --only_enc, on
+    several ranks as `--n_devices` or the `SIN3DM_DIST` bootstrap says
+    (see the module doc)."""
+    from ..core.rng import deterministic_algorithms, seed_all
     from ..parallel import maybe_initialize_distributed, spawn
     from ..parallel.mesh import barrier, close_group
     args = cfgmod.train_args(argv)
-    group = maybe_initialize_distributed(args.device)
-    seed_all(0)
-    flags = _tf32(True)
-    try:
-        trainer = loop = None
-        if args.only_enc or args.enc_log is None:
-            if group is None or group.rank == 0:
+    with deterministic_algorithms():
+        group = maybe_initialize_distributed(args.device)
+        seed_all(0)
+        flags = _tf32(True)
+        try:
+            trainer = loop = None
+            if args.only_enc or args.enc_log is None:
+                if group is None or group.rank == 0:
+                    if group is not None:
+                        args.gpu_id = group.device.index or 0
+                    trainer = train_ae(args)
                 if group is not None:
-                    args.gpu_id = group.device.index or 0
-                trainer = train_ae(args)
-            if group is not None:
-                barrier(group)
-        if not args.only_enc:
-            n = 1 if group is not None else diffusion_ranks(args)
-            if n > 1:
-                resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
-                loop = spawn(_diffusion_rank, n, args, device=args.device)
-            else:
-                loop = train_diffusion(args, group)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
-    if group is not None:
-        close_group(group)
+                    barrier(group)
+            if not args.only_enc:
+                n = 1 if group is not None else diffusion_ranks(args)
+                if n > 1:
+                    resolve_device(args.device,
+                                   int(getattr(args, "gpu_id", 0)))
+                    loop = spawn(_diffusion_rank, n, args,
+                                 device=args.device)
+                else:
+                    loop = train_diffusion(args, group)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        if group is not None:
+            close_group(group)
     return TrainResult(trainer, loop)
 
 

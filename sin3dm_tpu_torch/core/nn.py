@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -262,16 +263,46 @@ def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
     return _nhwc(F.avg_pool2d(_nchw(x), 2, 2))
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or in its own dtype where that is wider (a resize's
+    arithmetic, as `F.interpolate`'s accumulator type)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _resize_axis(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
+    """Linear resize of one axis as `F.interpolate` computes it (half-pixel
+    centres, no antialias): output j reads i0 = floor(s) and i0 + 1
+    (clamped to the axis) of the source index s = max(r (j + 1/2) - 1/2,
+    0), r = n_in / n_out in fp32, with weights (1 - l, l), l = s - i0."""
+    n_in = x.shape[dim]
+    r = np.float32(n_in / n_out)
+    s = np.maximum(r * (np.arange(n_out, dtype=np.float32)
+                        + np.float32(0.5)) - np.float32(0.5),
+                   np.float32(0.0))
+    i0 = s.astype(np.int64)
+    l1 = s - i0.astype(np.float32)
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+
+    def take(i):
+        return x.index_select(dim, torch.as_tensor(i, device=x.device))
+
+    def weight(w):
+        return torch.as_tensor(w, device=x.device).to(x.dtype).reshape(shape)
+
+    return (weight(np.float32(1.0) - l1) * take(i0)
+            + weight(l1) * take(np.minimum(i0 + 1, n_in - 1)))
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of `[B, H, W, C]` or `[H, W, C]`: half-pixel
-    centres (align_corners=False), no antialias, either direction."""
-    squeeze = x.dim() == 3
-    if squeeze:
-        x = x[None]
-    y = F.interpolate(_nchw(x), size=tuple(int(s) for s in out_hw),
-                      mode="bilinear", align_corners=False, antialias=False)
-    y = _nhwc(y)
-    return y[0] if squeeze else y
+    centres (align_corners=False), no antialias, either direction; W
+    then H, each as `_resize_axis`, in fp32 (x's dtype where wider)
+    rounded once to x's dtype.  Gathers and sums, so its backward is
+    deterministic on the card (`F.interpolate`'s bilinear backward is
+    not)."""
+    y = _resize_axis(_wide(x), x.dim() - 2, int(out_hw[1]))
+    return _resize_axis(y, x.dim() - 3, int(out_hw[0])).to(x.dtype)
 
 
 def resize_trilinear(x: torch.Tensor,
@@ -284,9 +315,26 @@ def resize_trilinear(x: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def _upsample2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`_resize_axis` to twice the length, as fixed-weight sums of shifted
+    slices: output 2i is 0.25 x[i-1] + 0.75 x[i] (x[0] at i = 0), output
+    2i+1 is 0.75 x[i] + 0.25 x[i+1] (x[i+1] clamped to the last)."""
+    n = x.shape[dim]
+    a, b = 0.75 * x, 0.25 * x
+    even = torch.cat([x.narrow(dim, 0, 1),
+                      b.narrow(dim, 0, n - 1) + a.narrow(dim, 1, n - 1)],
+                     dim=dim)
+    odd = a + torch.cat([b.narrow(dim, 1, n - 1), b.narrow(dim, n - 1, 1)],
+                        dim=dim)
+    out = torch.stack([even, odd], dim=dim + 1)
+    return out.reshape(*x.shape[:dim], 2 * n, *x.shape[dim + 1:])
+
+
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
-    H, W = x.shape[-3], x.shape[-2]
-    return resize_bilinear(x, (H * 2, W * 2))
+    """`resize_bilinear(x, (2H, 2W))` of `[B, H, W, C]`, the same numbers
+    (W then H in fp32, rounded once), without gathers."""
+    y = _upsample2x_axis(_wide(x), x.dim() - 2)
+    return _upsample2x_axis(y, x.dim() - 3).to(x.dtype)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

@@ -2,8 +2,9 @@
 
 `maybe_trace` records a `torch.profiler` trace (host and, on the card,
 device activity) into `{log_dir}/profile` as a Chrome trace;
-`step_annotation` marks a training step (`torch.profiler.record_function`),
-visible in a trace and nearly free without one.
+`step_annotation` marks a training step and `named_scope` a sub-phase
+(`torch.profiler.record_function`), visible in a trace and nearly free
+without one.
 """
 
 from __future__ import annotations
@@ -36,3 +37,8 @@ def maybe_trace(log_dir: Optional[str], enabled: bool = False):
 def step_annotation(name: str, step: int):
     """Mark one training step in the trace."""
     return torch.profiler.record_function(f"{name}#{step}")
+
+
+def named_scope(name: str):
+    """Mark a sub-phase inside a step in the trace."""
+    return torch.profiler.record_function(name)

@@ -3,19 +3,50 @@
 `seed_all` seeds Python's, numpy's and torch's global generators.  The
 port's random draws on the training and sampling paths come from explicit
 `torch.Generator`s seeded per step or per sample, so the global seeds
-touch only what draws without one.
+touch only what draws without one.  `deterministic_algorithms` makes the
+device's compute repeat bit for bit, which the JAX package is by
+construction and the reference's `seed_all` asked of cuDNN.
 """
 
+import contextlib
+import os
 import random
 
 import numpy as np
 import torch
+
+# cuBLAS repeats its results only with a fixed workspace per stream; it
+# reads the variable once, at the process's first cuBLAS call
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
 
 
 def seed_all(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """The block with deterministic kernels only: `torch.use_deterministic_
+    algorithms(True)` (an op without a deterministic kernel raises),
+    cuDNN deterministic and not benchmarking, and `CUBLAS_WORKSPACE_CONFIG`
+    set where it is unset (it takes effect only before the process's
+    first cuBLAS call).  The caller's flags are restored after."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic = old[2]
+        torch.backends.cudnn.benchmark = old[3]
 
 
 def step_generator(seed: int, index: int, device) -> torch.Generator:

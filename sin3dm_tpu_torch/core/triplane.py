@@ -57,11 +57,57 @@ def _zip_op(op, a: Triplane, b) -> Triplane:
     return Triplane(op(a.xy, b), op(a.xz, b), op(a.yz, b))
 
 
+def zeros_like(t: Triplane) -> Triplane:
+    return t.map(torch.zeros_like)
+
+
+def randn(gen: torch.Generator, batch: int, channels: int,
+          sizes: Tuple[int, int, int],
+          dtype: torch.dtype = torch.float32) -> Triplane:
+    """Standard normal planes `[batch, ., ., channels]` of sizes (H, W, D),
+    drawn from `gen` (xy, then xz, then yz) on the generator's device."""
+    H, W, D = sizes
+    return Triplane(*[torch.randn((batch, a, b, channels), generator=gen,
+                                  dtype=dtype, device=gen.device)
+                      for a, b in ((H, W), (H, D), (W, D))])
+
+
 def randn_like(gen: torch.Generator, t: Triplane) -> Triplane:
     """Per-plane standard normal noise of t's shapes and dtype, drawn from
     `gen` (xy, then xz, then yz) on the generator's device."""
     return t.map(lambda p: torch.randn(p.shape, generator=gen,
                                        dtype=p.dtype, device=gen.device))
+
+
+# ---------------------------------------------------------------------------
+# The reference's composed map (the file and test boundary)
+# ---------------------------------------------------------------------------
+
+def compose_featmaps(t: Triplane) -> torch.Tensor:
+    """The planes packed into the reference's composed map, channels-last
+    `[..., H+D, W+D, C]`: [[xy (H,W), xz (H,D)], [yz^T (D,W), 0 (D,D)]]."""
+    H, W, D = t.sizes
+    empty = t.xy.new_zeros(t.xy.shape[:-3] + (D, D, t.channels))
+    top = torch.cat([t.xy, t.xz], dim=-2)
+    bottom = torch.cat([t.yz.transpose(-3, -2), empty], dim=-2)
+    return torch.cat([top, bottom], dim=-3)
+
+
+def decompose_featmaps(composed: torch.Tensor,
+                       sizes: Tuple[int, int, int]) -> Triplane:
+    """The inverse of `compose_featmaps` (views into `composed`)."""
+    H, W, D = sizes
+    return Triplane(composed[..., :H, :W, :], composed[..., :H, W:, :],
+                    composed[..., H:, :W, :].transpose(-3, -2))
+
+
+def pad_triplane(t: Triplane, pad_h, pad_w, pad_d) -> Triplane:
+    """Zero-pad the three spatial extents; pad_h/w/d are (before, after)
+    pairs for the H, W and D axes."""
+    def pad(x, rows, cols):
+        return torch.nn.functional.pad(x, (0, 0, *cols, *rows))
+    return Triplane(pad(t.xy, pad_h, pad_w), pad(t.xz, pad_h, pad_d),
+                    pad(t.yz, pad_w, pad_d))
 
 
 def save_triplane_npz(path: str, t: Triplane) -> None:

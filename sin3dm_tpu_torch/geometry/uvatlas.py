@@ -12,10 +12,14 @@ disjoint placements rule out overlaps.  numpy only, over the native
 library.
 
 Returns (uvs [N,2], mesh_tex_idx [F,3]) like xatlas.parametrize.
+`SIN3DM_UV_TARGET` and `SIN3DM_UV_MAX_SPLITS` set the split loop's
+defaults, `SIN3DM_UV_DEBUG` prints each packing round, and `seam_stats`
+measures the seams an atlas cut, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -51,6 +55,32 @@ def _charts_by_axis(v: np.ndarray, f: np.ndarray) -> np.ndarray:
     roots, bins = native.charts_by_axis(v, f)
     _, chart = np.unique(roots, return_inverse=True)
     return chart, bins.astype(np.int64)
+
+
+def seam_stats(v: np.ndarray, f: np.ndarray, tex_idx: np.ndarray) -> dict:
+    """Seams of a parametrized mesh: an interior edge is a seam where its
+    two faces give it different uv index pairs (chart boundaries and
+    split cuts).  {"seam_length", "edge_length" (of the interior edges),
+    "seam_ratio"}; boundary edges count in neither."""
+    edges = {}
+    seam_len = 0.0
+    total_len = 0.0
+    for fi in range(len(f)):
+        for k in range(3):
+            a, b = int(f[fi, k]), int(f[fi, (k + 1) % 3])
+            ta, tb = int(tex_idx[fi, k]), int(tex_idx[fi, (k + 1) % 3])
+            key = (min(a, b), max(a, b))
+            length = float(np.linalg.norm(v[a] - v[b]))
+            uvkey = (min(ta, tb), max(ta, tb))
+            if key in edges:
+                total_len += length
+                if edges[key] != uvkey:
+                    seam_len += length
+            else:
+                edges[key] = uvkey
+    ratio = seam_len / total_len if total_len > 0 else 0.0
+    return {"seam_length": seam_len, "edge_length": total_len,
+            "seam_ratio": ratio}
 
 
 def _pack_once(v: np.ndarray, f: np.ndarray, chart: np.ndarray,
@@ -448,6 +478,8 @@ def _pack_once(v: np.ndarray, f: np.ndarray, chart: np.ndarray,
             cand["skyline"] = search(pack_skyline)
             # maxrects: fewer bisection steps (precision ~hi0 * 2^-22)
             cand["maxrects"] = search(pack_maxrects, iters=14)
+    if os.environ.get("SIN3DM_UV_DEBUG"):
+        print({k: round(float(v[0]), 6) for k, v in cand.items()})
     scale, packed = max(cand.values(), key=lambda sp: sp[0])
     if packed is None:
         raise RuntimeError("uv packing failed even at minimal scale")
@@ -476,7 +508,7 @@ def _split_chart(f: np.ndarray, chart: np.ndarray, c: int,
 
 
 def parametrize(v: np.ndarray, f: np.ndarray, padding: float = 0.004,
-                target_util: float = 0.65, max_splits: int = 6
+                target_util: float = None, max_splits: int = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """-> (uvs [N,2] in [0,1], mesh_tex_idx [F,3] indices into uvs).
 
@@ -487,10 +519,15 @@ def parametrize(v: np.ndarray, f: np.ndarray, padding: float = 0.004,
     (charts as column-wise height profiles in 4 orientations, so round
     lobes nest into each other's curves — what xatlas's bitmap packing
     does).  When the estimated texel utilization still lands below
-    `target_util`, the largest chart is split along its longer axis and
-    the atlas is repacked, up to `max_splits` times — a few
+    `target_util` (default 0.65, env SIN3DM_UV_TARGET), the largest chart
+    is split along its longer axis and the atlas is repacked, up to
+    `max_splits` (default 6, env SIN3DM_UV_MAX_SPLITS) times — a few
     equal-size lobes otherwise force a rigid grid layout with a dead
     side strip."""
+    if target_util is None:
+        target_util = float(os.environ.get("SIN3DM_UV_TARGET", "0.65"))
+    if max_splits is None:
+        max_splits = int(os.environ.get("SIN3DM_UV_MAX_SPLITS", "6"))
     chart, bins = _charts_by_axis(v, f)
     chart = np.asarray(chart).copy()
     profiles: dict = {}
@@ -511,6 +548,9 @@ def parametrize(v: np.ndarray, f: np.ndarray, padding: float = 0.004,
         if best is None or result[0] > best[0]:
             best = (result[0], chart.copy())
         util_est = result[5] * result[0] ** 2
+        if os.environ.get("SIN3DM_UV_DEBUG"):
+            print(f"  util_est {util_est:.4f} (charts "
+                  f"{chart.max() + 1 if len(f) else 0})")
         if util_est >= target_util or splits >= max_splits:
             break
         scale, pos, rot, chart_rects, chart_vert_uv, _ = result

@@ -17,7 +17,8 @@ samples the planes at world points, `decode_texels*` gives uint8 texel
 colours, over points or over the run-length texel wire.  Skip heads go
 through the kernel K2 (`ops/fused_mlp.py`) with bf16 operands by default
 (`SIN3DM_DECODE_BF16=0` keeps them fp32); K2 has no backward, so only
-the decode entry points take it.
+the decode entry points take it, and `SIN3DM_FUSED_HEADS=0` (JAX's
+switch) sends them through the plain fp32 heads as well.
 """
 
 from __future__ import annotations
@@ -126,15 +127,22 @@ def decode_mxu_dtype() -> torch.dtype:
     return torch.bfloat16
 
 
+def fused_heads() -> bool:
+    """JAX's `SIN3DM_FUSED_HEADS` switch: the decode's skip heads through
+    K2 unless it is "0", "false" or empty (unset: K2)."""
+    env = os.environ.get("SIN3DM_FUSED_HEADS")
+    return env is None or env not in ("0", "false", "")
+
+
 def _head_apply(cfg: AEConfig, head: Dict, x: torch.Tensor,
                 fused: bool = True) -> torch.Tensor:
-    """A decoder head: skip heads through K2 where `fused` (inference),
-    else as plain linears (training: they read the raw "first"/"second"
-    leaves, never the "k2" pack); the 'base' plain MLP as plain
-    linears."""
+    """A decoder head: skip heads through K2 where `fused` (inference)
+    and `fused_heads()`, else as plain linears (training: they read the
+    raw "first"/"second" leaves, never the "k2" pack); the 'base' plain
+    MLP as plain linears."""
     if cfg.enc_net_type == "base":
         return _mlp_apply(head, x)
-    if fused:
+    if fused and fused_heads():
         return skip_mlp(head, x, mxu_dtype=decode_mxu_dtype())
     return _mlp_skip_apply(head, x)
 

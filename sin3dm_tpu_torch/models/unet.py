@@ -12,7 +12,10 @@ border fix-ups (`_colvar_vecs` / `_rowvar_vecs`).  Two forwards:
 - `unet_apply`, the sampler's, under `torch.no_grad`: every 3x3 conv goes
   through the kernel K1 (`ops/fused_conv.py`), which adds the fix-ups in
   its epilogue, in bf16 and in fp32 alike, a triplane conv's three planes
-  in one call (`conv3x3_rollout_triplane`: one launch in bf16).
+  in one call (`conv3x3_rollout_triplane`: one launch in bf16).  With
+  `UNetConfig.fused_conv` off (JAX's field; `SIN3DM_FUSED_CONV=0` in
+  `cli/sample.py`) it runs the training forward's convs instead, and the
+  opt-in configurations below do not apply, as in JAX.
 - `unet_train_apply`, the differentiable one, JAX's `fused_conv=False`
   route: the self part of each 3x3 conv as `F.conv2d` (cuDNN on the
   card), plus the fix-ups as `_colvar_contrib` / `_rowvar_contrib`, plus
@@ -85,6 +88,10 @@ class UNetConfig(NamedTuple):
     compute_dtype: torch.dtype = torch.float32
     fast_norm: bool = False
     use_checkpoint: bool = False      # training forward only
+    # JAX's field: the sampler's forward through K1 (default here: the
+    # port's sampler has always taken it); off, it runs the training
+    # forward's convs under no_grad (`SIN3DM_FUSED_CONV=0`, cli/sample.py)
+    fused_conv: bool = True
     # a parallel.DataGroup over which dim 1 of every plane is sharded
     # (the sampler's forward only); None: whole planes
     spatial_group: Any = None
@@ -510,17 +517,17 @@ def _resblock_apply_stats(p: Dict, t: Triplane, t_stats: Optional[Dict],
 
 def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
                     use_scale_shift: bool, rollout: bool,
-                    fast_norm: bool, train: bool = False,
+                    fast_norm: bool, k1: bool = True,
                     sg=None) -> Triplane:
-    """One resblock; with `train` (or planes sharded over `sg`) its 3x3
-    convs are the differentiable `_tconv_apply_train` (and the opt-in
-    configurations, which need K1′, do not apply), else K1."""
-    if train or sg is not None:
+    """One resblock; its 3x3 convs through K1 where `k1`, else the
+    differentiable `_tconv_apply_train` (over `sg`'s shards where given),
+    and then the opt-in configurations, which need K1′, do not apply."""
+    if k1:
+        conv = _tconv_apply
+    else:
         def conv(pp, tt, ro):
             return _tconv_apply_train(pp, tt, ro, sg)
-    else:
-        conv = _tconv_apply
-    if not train and sg is None and _use_fused_act():
+    if k1 and _use_fused_act():
         # norm + FiLM + SiLU as coefficients applied inside K1′
         a1 = _tnorm_coeffs(p["in_norm"], t)
         h = _tconv_apply(p["in_conv"], t, rollout, act=a1)
@@ -584,11 +591,12 @@ def _stats_chain_on(cfg: UNetConfig) -> bool:
 @torch.no_grad()
 def unet_apply(params: Dict, cfg: UNetConfig, x: Triplane,
                timesteps: torch.Tensor) -> Triplane:
-    """The sampler's forward, through K1.  x: Triplane of `[B, ., .,
-    C_in]`; timesteps `[B]`.  Returns out_channels planes of the input's
-    sizes, in x's dtype.  With `cfg.spatial_group`, x holds this rank's
-    shards (dim 1 of each plane) and so does the result; the convs are
-    then the differentiable form's (no K1)."""
+    """The sampler's forward, through K1 where `cfg.fused_conv`, else
+    through the differentiable form's convs (cuDNN on the card).  x:
+    Triplane of `[B, ., ., C_in]`; timesteps `[B]`.  Returns out_channels
+    planes of the input's sizes, in x's dtype.  With `cfg.spatial_group`,
+    x holds this rank's shards (dim 1 of each plane) and so does the
+    result; the convs are then the differentiable form's (no K1)."""
     return _forward(params, cfg, x, timesteps, train=False)
 
 
@@ -628,14 +636,16 @@ def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
     h = x.to(cfg.compute_dtype)
     h = _tconv_apply(params["in_conv"], h, rollout=False)   # 1x1: no K1
 
+    # K1 in the sampler's forward, as JAX's fused_conv: not on shards
+    k1 = not train and sg is None and cfg.fused_conv
     # the (sum, sum of squares) of h where a chained block made it; None
     # wherever h changed outside a chained conv
-    use_stats = not train and sg is None and _stats_chain_on(cfg)
+    use_stats = k1 and _stats_chain_on(cfg)
     h_stats = None
 
     def resblock(bp, t, e):
         return _resblock_apply(bp, t, e, cfg.use_scale_shift_norm,
-                               cfg.rollout, cfg.fast_norm, train, sg)
+                               cfg.rollout, cfg.fast_norm, k1, sg)
 
     def block(bp, t, t_stats):
         if use_stats and _stats_block_ok(bp, t, cfg.rollout):
@@ -710,11 +720,13 @@ def k1_launches_by_form(cfg: UNetConfig) -> Dict[str, int]:
     launch each in bf16 on the card, three in fp32), by form
     (`ops.fused_conv.form_name`), in the configuration the environment
     selects now: two 3x3 triplane convs per resblock (the 1x1
-    in/out/skip convs are not K1).  Assumes every level's planes are at
-    least 2 on each side (below that, act applies outside the kernel and
-    no block chains)."""
+    in/out/skip convs are not K1); none without `cfg.fused_conv`.
+    Assumes every level's planes are at least 2 on each side (below
+    that, act applies outside the kernel and no block chains)."""
     fused_act, chain = _use_fused_act(), _stats_chain_on(cfg)
     counts: Dict[str, int] = {}
+    if not cfg.fused_conv:
+        return counts
 
     def add(form, n):
         counts[form] = counts.get(form, 0) + n

@@ -112,6 +112,15 @@ def encode(q: torch.Tensor, capacity: int = None) -> SparseGrid:
                       bflag.sum(dtype=torch.int32), shape, P)
 
 
+def wire_bytes(sg: SparseGrid) -> int:
+    """Bytes the wire carries from the device: the sign bitmap, the int32
+    block ids, the int8 block values and the int32 count (its arrays on
+    the device or on the host)."""
+    def n(a):
+        return a.numel() if isinstance(a, torch.Tensor) else a.size
+    return n(sg.signs) + n(sg.block_ids) * 4 + n(sg.block_vals) + 4
+
+
 def occupancy_host(sg: SparseGrid) -> np.ndarray:
     """Occupancy (sdf < 0) `[X, Y, Z]` bool from the sign bits: what
     voxel.npz stores (floor quantization keeps every sign)."""

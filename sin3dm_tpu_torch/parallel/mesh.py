@@ -28,9 +28,11 @@ in the group (rank, size, device, backend, process group).
   `SIN3DM_PROCESS_ID`), which meet through a `TCPStore` that process 0
   serves at the coordinator's address.  A JAX process is a host with its
   chips; a process here is one device, so the process count is the
-  device count, and process r takes card r % (the host's cards): start
-  a host's processes with consecutive ids.  JAX's TPU-pod
-  auto-detection has no counterpart: the coordinator must be given.
+  device count.  A process takes the card its launcher names on its host
+  (`SIN3DM_LOCAL_RANK`, else torchrun's `LOCAL_RANK`), else card r % (the
+  host's cards), which needs a host's processes to have consecutive ids.
+  JAX's TPU-pod auto-detection has no counterpart: the coordinator must
+  be given.
 """
 
 from __future__ import annotations
@@ -66,9 +68,26 @@ class DataGroup(NamedTuple):
     pg: Any = None
 
 
-def rank_device(rank: int, device: str = "cuda") -> torch.device:
-    """Rank r's device: `cuda:(r % device_count)`, or the CPU for
-    `device="cpu"`.  Asking for the card where there is none raises."""
+LOCAL_RANK_VARS = ("SIN3DM_LOCAL_RANK", "LOCAL_RANK")
+
+
+def local_rank() -> Optional[Tuple[str, int]]:
+    """(variable, value) of this process's card index on its host where
+    its launcher gives one (`SIN3DM_LOCAL_RANK`, else torchrun's
+    `LOCAL_RANK`), else None."""
+    for name in LOCAL_RANK_VARS:
+        v = os.environ.get(name, "")
+        if v:
+            return name, int(v)
+    return None
+
+
+def rank_device(rank: int, device: str = "cuda",
+                local: Optional[int] = None) -> torch.device:
+    """Rank r's device: `cuda:local` where a local index is given, else
+    `cuda:(r % device_count)`; the CPU for `device="cpu"`.  Asking for the
+    card where there is none, or a local index past the host's cards,
+    raises."""
     if device == "cpu":
         return torch.device("cpu")
     if device != "cuda":
@@ -76,7 +95,12 @@ def rank_device(rank: int, device: str = "cuda") -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    n = torch.cuda.device_count()
+    if local is None:
+        return torch.device("cuda", rank % n)
+    if not 0 <= local < n:
+        raise ValueError(f"local index {local}: this host has {n} card(s)")
+    return torch.device("cuda", local)
 
 
 Place = Tuple[str, Optional[str]]
@@ -111,11 +135,13 @@ def _exchange_places(store, rank: int, size: int,
             for r in range(size)]
 
 
-def init_group(rank: int, size: int, device: str, store) -> DataGroup:
+def init_group(rank: int, size: int, device: str, store,
+               local: Optional[int] = None) -> DataGroup:
     """Join the default process group as `rank` of `size` through
-    `store`, on the backend `backend_for` picks from the ranks' places
-    (NCCL binds the rank's card at init); rank 0 prints the choice."""
-    dev = rank_device(rank, device)
+    `store`, on `rank_device(rank, device, local)` and the backend
+    `backend_for` picks from the ranks' places (NCCL binds the rank's
+    card at init); rank 0 prints the choice."""
+    dev = rank_device(rank, device, local)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     places = _exchange_places(store, rank, size, place_of(dev))
@@ -138,9 +164,10 @@ def maybe_initialize_distributed(device: str = "cuda"
                                  ) -> Optional[DataGroup]:
     """The env-gated bootstrap: with `SIN3DM_DIST=1`, join the group as
     rank `$SIN3DM_PROCESS_ID` of `$SIN3DM_NUM_PROCESSES` through a
-    `TCPStore` at `$SIN3DM_COORDINATOR` (host:port; rank 0 serves it);
-    None without `SIN3DM_DIST`.  ValueError names the variables that are
-    missing."""
+    `TCPStore` at `$SIN3DM_COORDINATOR` (host:port; rank 0 serves it),
+    on the card `local_rank()` names (else rank % the host's cards), and
+    print the process's line; None without `SIN3DM_DIST`.  ValueError
+    names the variables that are missing."""
     if os.environ.get("SIN3DM_DIST", "").lower() not in _ON:
         return None
     names = ("SIN3DM_COORDINATOR", "SIN3DM_NUM_PROCESSES",
@@ -155,7 +182,14 @@ def maybe_initialize_distributed(device: str = "cuda"
     size = int(os.environ["SIN3DM_NUM_PROCESSES"])
     host, port = os.environ["SIN3DM_COORDINATOR"].rsplit(":", 1)
     store = dist.TCPStore(host, int(port), size, is_master=rank == 0)
-    return init_group(rank, size, device, store)
+    local = local_rank() if device == "cuda" else None
+    group = init_group(rank, size, device, store,
+                       local[1] if local else None)
+    where = (f"local index {local[1]} (${local[0]})" if local else
+             "no local index: rank % the host's cards" if device == "cuda"
+             else "the CPU")
+    print(f"process {rank} of {size}: {group.device} ({where})", flush=True)
+    return group
 
 
 # ---------------------------------------------------------------------------

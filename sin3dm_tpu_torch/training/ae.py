@@ -38,7 +38,9 @@ colours decoded on the device over the run-length texel wire, and the
 textured mesh written by a background export worker.  The skip heads run
 through K2, which reads the packed weights (`ops.pack_params`): the
 trainer packs them again after every parameter update that precedes a
-decode, and no checkpoint holds a pack.
+decode, and no checkpoint holds a pack.  `SIN3DM_FUSED_HEADS=0` (JAX's
+switch, read at every decode by `models.autoencoder.fused_heads`) runs
+them as the plain fp32 heads instead.
 
 Device work is queued on the current stream; results travel to the host
 by copies into pinned memory that do not block (`_Fetch`), and the host

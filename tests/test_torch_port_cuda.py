@@ -176,6 +176,7 @@ def _skip_head(g, cin, cout, hidden, n_hidden):
 @pytest.mark.parametrize("cin,cout,hidden,n_hidden,n", [
     (64, 1, 256, 4, 1000),        # the towerruins geometry head
     (64, 3, 256, 4, 64 * 3 + 5),  # texture head, a ragged last tile
+    (64, 2, 256, 4, 1000),        # pbr's metallic-roughness head
     (32, 4, 64, 2, 77),
     (16, 3, 48, 0, 130),          # widths off the 64-column fragment grid
 ])
@@ -613,6 +614,55 @@ def test_nan_guard_step_on_the_card(card):
     torch.testing.assert_close(state.mu, mu * 0.9, rtol=1e-6, atol=0)
     torch.testing.assert_close(state.nu, nu * 0.999, rtol=1e-6, atol=0)
     assert (state.count, state.sched_count, state.step) == (2, 2, 2)
+
+
+@pytest.mark.parametrize("model", ["diffusion", "ae"])
+def test_two_train_steps_of_one_seed_are_equal_bits(card, model, tmp_path):
+    """Under `core.rng.deterministic_algorithms` (what `cli.train` runs
+    in), two runs of two train steps from the same state and seed give
+    the same params, mu and nu, bit for bit."""
+    from sin3dm_tpu_torch.core import checkpoint as ck
+    from sin3dm_tpu_torch.core.rng import deterministic_algorithms
+    runs = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            if model == "diffusion":
+                from sin3dm_tpu_torch.diffusion.gaussian import (
+                    DiffusionConfig, tables_to_device)
+                from sin3dm_tpu_torch.diffusion.schedule import make_schedule
+                from sin3dm_tpu_torch.models import unet as TU
+                from sin3dm_tpu_torch.training import diffusion as TD
+                cfg, params, x = _train_setup(card)
+                tcfg = TD.DiffusionTrainerConfig(batch_size=2)
+                state = TD.init_train_state(params, tcfg, 50)
+                step = TD.make_train_step(
+                    lambda p, xx, tt: TU.unet_train_apply(p, cfg, xx, tt),
+                    tables_to_device(make_schedule("linear", 50)
+                                     .tables_f32(), card),
+                    DiffusionConfig(original_num_steps=50), tcfg)
+                for _ in range(2):
+                    step(state, x, 0)
+            else:
+                from sin3dm_tpu_torch.models import autoencoder as tae
+                from sin3dm_tpu_torch.training import ae as ta
+                npz = str(tmp_path / "sphere.npz")
+                _ae_sphere_npz(npz)
+                acfg = tae.AEConfig(fdim_geo=4, fdim_tex=8, fdim_up=32,
+                                    hidden_dim=64, n_hidden_layers=2)
+                tcfg = ta.AETrainerConfig(enc_batch_size=4096,
+                                          enc_n_iters=100, fm_reso=16)
+                data, meta, _ = ta.load_ae_data(npz, tcfg, card)
+                state = ta.init_train_state(tae.init_autoencoder(
+                    torch.Generator(card).manual_seed(3), acfg), tcfg)
+                step = ta.make_train_step(acfg, tcfg, meta["threshold"])
+                for _ in range(2):
+                    step(state, data, 0)
+            torch.cuda.synchronize()
+            runs.append([b.clone() for b in (state.flat, state.mu,
+                                             state.nu)])
+    assert not torch.equal(runs[0][1], torch.zeros_like(runs[0][1]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # The AE's training form: K2 closed to autograd, a train step on the card
