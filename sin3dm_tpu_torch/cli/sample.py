@@ -55,6 +55,7 @@ import torch
 
 from ..core import checkpoint as ckpt
 from ..core import config as cfgmod
+from ..core import profiling
 from ..core.triplane import Triplane, load_triplane_npz, save_triplane_npz
 from ..parallel.mesh import shard_range
 
@@ -292,6 +293,7 @@ def decode(args, paths):
         list(pool.map(decode_one, paths))
 
 
+@profiling.follow_profiler()
 def generate(args, group=None):
     """Sample and decode to meshes through the trainer's cross-chunk
     pipeline (`AETrainer.pipelined_generate`): chunks of --pipeline_chunk
@@ -299,9 +301,12 @@ def generate(args, group=None):
     decoded after the next chunk's chain.  Sample j depends only on
     (--seed, j), whatever the chunking.  With a data `group`, this
     rank's block of the samples.  Returns (paths, the trainer's stage log, with
-    each sample's share of its chunk's chain)."""
-    sampler, C, sizes, device = _build_sampler(args)
-    trainer = _make_trainer(args, device)
+    each sample's share of its chunk's chain).  Spans (`core.profiling`):
+    `gen.load`, one `gen.chain` a chunk (its duration is the chunk's
+    "chain" seconds), the chain's steps and the decode's stages."""
+    with profiling.span("gen.load"):
+        sampler, C, sizes, device = _build_sampler(args)
+        trainer = _make_trainer(args, device)
     trainer.stage_log = []
     mtl_path = _find_mtl(args)
     result_dir = os.path.join(args.tag, args.output)
@@ -312,13 +317,12 @@ def generate(args, group=None):
     chunk = max(1, min(int(getattr(args, "pipeline_chunk", 1) or 1),
                        args.diff_batch_size, count))
     paths = []
-    chain_seconds = {}
+    chains = {}   # chunk -> its timed gen.chain span
 
     def sample_chunk(i):
-        t0 = time.perf_counter()
-        samples = sampler(seed, i, min(chunk, end - i), C, sizes)
-        _sync(device)
-        chain_seconds[i] = time.perf_counter() - t0
+        with profiling.timed("gen.chain", j=i) as chains[i]:
+            samples = sampler(seed, i, min(chunk, end - i), C, sizes)
+            _sync(device)
         return samples
 
     def prepare_chunk(i, samples):
@@ -326,9 +330,11 @@ def generate(args, group=None):
         new = _save_samples(result_dir, samples, i, bs)
         paths.extend(new)
         dirs = [os.path.dirname(p) for p in new]
+        tm = chains[i]
         for d in dirs:
             trainer.stage_log.append({"dir": d, "stage": "chain",
-                                      "seconds": chain_seconds[i] / bs})
+                                      "seconds": tm.ns / 1e9 / bs,
+                                      **profiling.stamps(tm.rec)})
         return dirs, [samples.map(lambda p, j=j: p[j]) for j in range(bs)]
 
     trainer.pipelined_generate(
@@ -379,18 +385,14 @@ def _rank(group, args, data_parallel: bool) -> dict:
     """One rank of `main`: `run` on this rank's device, with this
     process's kernel launches and collectives (all its own), its device
     and the group's backend added."""
-    from ..ops.fused_conv import conv3x3_rollout
-    from ..ops.fused_mlp import skip_mlp
-    from ..parallel import mesh
     if group.device.type == "cuda":
         args.gpu_id = group.device.index
     out = run(args, group if data_parallel else None,
               None if data_parallel else group)
-    out["launches"] = {"k1": conv3x3_rollout.launches,
-                       "k1_forms": dict(conv3x3_rollout.form_launches),
-                       "k2": skip_mlp.launches,
-                       "k2_shapes": dict(skip_mlp.shape_launches)}
-    out["collectives"] = dict(mesh.COUNTS)
+    c = profiling.counters()
+    out["launches"] = {"k1": c["k1.launches"], "k1_forms": c["k1.forms"],
+                       "k2": c["k2.launches"], "k2_shapes": c["k2.shapes"]}
+    out["collectives"] = c["collectives"]
     out["device"], out["backend"] = str(group.device), group.backend
     return out
 

@@ -20,7 +20,9 @@ plane (`noise_view`), so the sharded chain is the whole one.
 The progressive loops keep the state after every `snapshot_every` steps
 (and after the last), stacked `[S, B, ...]`; their last snapshot is the
 plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
-`gaussian.condition_mean` / `condition_score`).
+`gaussian.condition_mean` / `condition_score`).  Each step of the plain
+loops is a `chain.step` span (`core.profiling`): the host's launches,
+no sync.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
 from ..parallel.halo import gather_plane, shard_plane
@@ -126,7 +129,8 @@ def p_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
     step = _p_stepper(model, tables, cfg, gens, channels, sizes,
                       clip_denoised, device, cond_fn, noise_view)
     for t in range(T - 1, -1, -1):
-        x = step(x, t)
+        with profiling.span("chain.step", t=t):
+            x = step(x, t)
     return x
 
 
@@ -151,7 +155,8 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                          eta, clip_denoised, device, y0, mask, is_mask_t0,
                          cond_fn, noise_view)
     for t in range(T - 1, -1, -1):
-        x = step(x, t)
+        with profiling.span("chain.step", t=t):
+            x = step(x, t)
     return x
 
 

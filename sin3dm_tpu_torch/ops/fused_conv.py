@@ -39,6 +39,7 @@ the caller's current device is.
 `conv3x3_rollout.launches` counts every kernel launch of either wrapper
 and `conv3x3_rollout.form_launches` counts them by form (`form_name`),
 under one lock: launches from concurrent threads each count once.
+`core.profiling.counters()` reads them as "k1.launches" and "k1.forms".
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import profiling
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -438,3 +440,5 @@ def conv3x3_rollout_triplane(xs: Sequence[torch.Tensor],
 
 conv3x3_rollout.launches = 0
 conv3x3_rollout.form_launches = {}
+profiling.counter("k1.launches", lambda: conv3x3_rollout.launches)
+profiling.counter("k1.forms", lambda: dict(conv3x3_rollout.form_launches))

@@ -17,6 +17,7 @@ per call.  Each launch runs with the input's card as the current device
 `skip_mlp.launches` counts every kernel launch, and
 `skip_mlp.shape_launches` counts them by shape, `(rows, cin, cout)`,
 under one lock: launches from concurrent threads each count once.
+`core.profiling.counters()` reads them as "k2.launches" and "k2.shapes".
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..core import profiling
 from . import _build
 
 
@@ -324,3 +326,5 @@ def _count(shape) -> None:
 
 skip_mlp.launches = 0
 skip_mlp.shape_launches = {}
+profiling.counter("k2.launches", lambda: skip_mlp.launches)
+profiling.counter("k2.shapes", lambda: dict(skip_mlp.shape_launches))

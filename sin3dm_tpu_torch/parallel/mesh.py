@@ -52,8 +52,12 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, \
 import torch
 import torch.distributed as dist
 
-# collectives issued by this process, by kind
+from ..core import profiling
+
+# collectives issued by this process, by kind (`profiling.counters()`'s
+# "collectives")
 COUNTS = {"all_reduce": 0}
+profiling.counter("collectives", lambda: dict(COUNTS))
 
 _ON = ("1", "true", "yes", "on")
 

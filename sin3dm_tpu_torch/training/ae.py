@@ -50,6 +50,7 @@ concurrent decode threads apart.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import threading
@@ -62,7 +63,7 @@ import torch
 
 from ..compat.from_jax import ae_params_from_jax
 from ..core import checkpoint as ckpt
-from ..core import logger
+from ..core import logger, profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
 from ..dataio.grid import grid_resolutions, sample_grid_points_aabb
@@ -687,13 +688,11 @@ class AETrainer:
                 tb = SummaryWriter(os.path.join(self.log_dir, "tblog"))
             except ImportError:
                 pass
-        from ..core.profiling import step_annotation
         eval_every = eval_every or max(n_iters // 5, 1)
         save_every = save_every or eval_every
         K = max(self.tcfg.steps_per_call, 1)
         for i in range(st.step, n_iters, K):
-            with step_annotation("ae_train", i):
-                metrics = step_fn(st, self.data, seed)
+            metrics = step_fn(st, self.data, seed)
             if i % log_every == 0 and self.is_main:
                 vals = {k: float(v) for k, v in metrics.items()}
                 for k, v in vals.items():
@@ -772,10 +771,12 @@ class AETrainer:
 
     def _submit_assemble(self, **kw) -> None:
         """Run :meth:`_texmesh_assemble` on the background writer (inline
-        when SIN3DM_ASYNC_EXPORT=0)."""
+        when SIN3DM_ASYNC_EXPORT=0).  The writer's stages are logged and
+        record no span."""
         if os.environ.get("SIN3DM_ASYNC_EXPORT", "1") in ("0", "false", ""):
             self._texmesh_assemble(**kw)
             return
+        kw["tick"] = functools.partial(kw["tick"], span=False)
         with self._export_lock:
             if self._export_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
@@ -939,15 +940,23 @@ class AETrainer:
         With `defer_last` the last sample's assembly is not submitted: its
         kwargs come back, for the next call's `pending_in`
         (:meth:`pipelined_generate`).  Otherwise every export has finished
-        when this returns."""
-        def tick(save_dir, stage, t0, detail="", **info):
-            t = time.perf_counter()
+        when this returns.
+
+        Each stage is timed once, from two `time.perf_counter_ns()`
+        reads: the span `decode.<stage>` (none for the export worker's
+        stages) and, where `stage_log` is set, its entry (with the span's
+        `start_ns` and `end_ns` while spans are recorded)."""
+        def tick(save_dir, stage, t0, detail="", span=True, **info):
+            t = time.perf_counter_ns()
+            rec = (profiling.add("decode." + stage, t0, t, dir=save_dir)
+                   if span else None)
             if self.stage_log is not None:
                 self.stage_log.append({"dir": save_dir, "stage": stage,
-                                       "seconds": t - t0, **info})
+                                       "seconds": (t - t0) / 1e9,
+                                       **profiling.stamps(rec), **info})
             if verbose:
-                print(f"  [decode_texmesh] {stage}{detail}: {t - t0:.2f}s",
-                      flush=True)
+                print(f"  [decode_texmesh] {stage}{detail}: "
+                      f"{(t - t0) / 1e9:.2f}s", flush=True)
             return t
 
         aabbs = [self._feat_aabb(f) for f in feats]
@@ -960,7 +969,7 @@ class AETrainer:
         pending = pending_in
         for idx, (save_dir, feat, new_aabb) in enumerate(
                 zip(save_dirs, feats, aabbs)):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             h = grid_handles[idx]
             grid_handles[idx] = None
             sdf_grid, sparse = self._fetch_geo_grid(h)
@@ -974,7 +983,7 @@ class AETrainer:
                 sparse=sparse, quant=h.quant)
             if cpu is None:   # empty surface, or sdf only: nothing to bake
                 continue
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             texel_handle = self._dispatch_texels(feat, cpu["texels"],
                                                  new_aabb)
             tick(save_dir, "texel dispatch", t0,
@@ -1050,7 +1059,7 @@ class AETrainer:
         every voxel's sign), scale the threshold (1.0 under sdf_renorm),
         and travels as the sparse wire unless SIN3DM_SPARSE_GRID=0; the
         sdf data type keeps fp16, as its path writes the raw grid."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         res = tuple(int(x) for x in grid_resolutions(np.asarray(aabb), reso))
         quant = None
         if self.acfg.data_type != "sdf":
@@ -1071,7 +1080,9 @@ class AETrainer:
                                 sparse.block_vals, sparse.count])
             else:
                 fetch = _Fetch([grid])
-        return GeoGrid(grid, quant, sparse, fetch, time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        profiling.add("decode.grid dispatch", t0, t1)
+        return GeoGrid(grid, quant, sparse, fetch, (t1 - t0) / 1e9)
 
     def _fetch_geo_grid(self, h: GeoGrid):
         """(dense fp32 sdf grid or None, host SparseGrid or None) of a
@@ -1272,7 +1283,7 @@ class AETrainer:
                           texture_reso: int, mtl_path, file_format: str,
                           tick) -> None:
         """The export tail: fetch the texel chunks, dilate seams, write."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         fetch, N = texel_handle
         preds = np.concatenate(fetch.wait(), axis=0)[:N]
         t0 = tick(save_dir, "texel decode", t0)

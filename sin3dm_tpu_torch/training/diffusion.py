@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt
-from ..core import logger
+from ..core import logger, profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
 from ..diffusion import resample
@@ -200,9 +200,12 @@ def train_step(state: TrainState, model_apply: Callable, tables,
     if group is not None:
         t_loc = local_rows(group, t)
         noise_loc = noise.map(lambda p: local_rows(group, p))
-    terms, weights, g = compute_grads(state, model_apply, tables, dcfg,
-                                      tcfg, batch, t_loc, noise_loc, group)
-    gnorm, ok = apply_grads(state, g, tcfg)
+    with profiling.span("train.grads"):
+        terms, weights, g = compute_grads(state, model_apply, tables, dcfg,
+                                          tcfg, batch, t_loc, noise_loc,
+                                          group)
+    with profiling.span("train.apply"):
+        gnorm, ok = apply_grads(state, g, tcfg)
     if tcfg.schedule_sampler == "loss-second-moment":
         state.sampler_state = resample.update_sampler_state(
             state.sampler_state, t, terms["loss"])
@@ -218,19 +221,24 @@ def make_train_step(model_apply: Callable, tables, dcfg: DiffusionConfig,
     batch's) replaces the draws.  Metrics as JAX's fused call gives them:
     the last step's scalars, every step's per-example values
     concatenated.  With a data `group` (JAX's `mesh=`), `batch` is this
-    rank's equal share of the global batch (see the module doc)."""
+    rank's equal share of the global batch (see the module doc).  Each
+    step's phases are spans (`core.profiling`): `train.draw`,
+    `train.grads` (the forward's and backward's launches) and
+    `train.apply` (AdamW, the NaN guard, the EMA)."""
     T = int(tables["betas"].shape[0])
     K = max(tcfg.steps_per_call, 1)
     size = 1 if group is None else group.size
 
+    @profiling.follow_profiler()
     def step_fn(state: TrainState, batch: Triplane, seed: int,
                 inputs: Optional[Sequence[Tuple[torch.Tensor,
                                                 Triplane]]] = None):
         per = []
         for i in range(K):
-            t, noise = inputs[i] if inputs is not None else \
-                draw_step_inputs(tcfg, state, batch, seed, state.step, T,
-                                 n=batch.xy.shape[0] * size)
+            with profiling.span("train.draw"):
+                t, noise = inputs[i] if inputs is not None else \
+                    draw_step_inputs(tcfg, state, batch, seed, state.step,
+                                     T, n=batch.xy.shape[0] * size)
             per.append(train_step(state, model_apply, tables, dcfg, tcfg,
                                   batch, t, noise, group))
         return {k: (torch.cat([m[k] for m in per]) if v.dim() else v)
@@ -338,7 +346,6 @@ class DiffusionTrainLoop:
     def run(self, seed: int, n_steps: Optional[int] = None) -> None:
         """Train from the state's step to `n_steps` (default the anneal
         length) with step k's draws from (seed, k)."""
-        from ..core.profiling import step_annotation
         n_steps = n_steps or self.tcfg.lr_anneal_steps
         saved_at = -1
         K = max(self.tcfg.steps_per_call, 1)
@@ -346,7 +353,7 @@ class DiffusionTrainLoop:
         metrics_every = max(10, K, self.tcfg.log_interval // 10)
         step = self.state.step
         while step < n_steps:
-            with step_annotation("diffusion_train", step):
+            with profiling.span("train.call", step=step):
                 metrics = self.step_fn(self.state, self.batch, seed)
             last = step + K - 1
             if last % metrics_every < K:

@@ -3,8 +3,8 @@ against the JAX functions on the same numpy inputs: `seam_stats`,
 `parametrize`'s `SIN3DM_UV_TARGET` / `SIN3DM_UV_MAX_SPLITS` defaults and
 `SIN3DM_UV_DEBUG` prints, the sparse wire's `wire_bytes`, the composed
 feature map (`compose_featmaps`, `decompose_featmaps`), `pad_triplane`,
-`zeros_like`, `randn` (an explicit generator), and `named_scope` in a
-`torch.profiler` trace."""
+`zeros_like` and `randn` (an explicit generator).  (Spans in a
+`torch.profiler` trace: `test_torch_port_profiling.py`.)"""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +16,6 @@ from sin3dm_tpu.core import triplane as jtri
 from sin3dm_tpu.geometry import native as jnat
 from sin3dm_tpu.geometry import uvatlas as juv
 from sin3dm_tpu.ops import sparse_grid as jsg
-from sin3dm_tpu_torch.core import profiling
 from sin3dm_tpu_torch.core import triplane as ttri
 from sin3dm_tpu_torch.geometry import uvatlas as tuv
 from sin3dm_tpu_torch.ops import sparse_grid as tsg
@@ -128,11 +127,3 @@ def test_randn_shapes_and_draw_order(dtype):
         assert p.dtype == dtype
         assert torch.equal(p, torch.randn(p.shape, generator=g,
                                           dtype=dtype))
-
-
-def test_named_scope_marks_the_trace():
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with profiling.named_scope("decode/heads"):
-            torch.ones(4).sum()
-    assert "decode/heads" in {e.key for e in prof.key_averages()}
