@@ -269,29 +269,44 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+_TAPS = {}   # (n_in, n_out, device) -> `_resize_axis`'s taps there
+
+
+def _axis_taps(n_in: int, n_out: int, device):
+    """(i0, i1, w0, w1) of `_resize_axis` on `device`: the gather indices
+    (int64) and their fp32 weights, made on the host once a shape and
+    device, so that a forward captured as a CUDA graph copies nothing
+    from the host."""
+    key = (n_in, n_out, device)
+    taps = _TAPS.get(key)
+    if taps is None:
+        r = np.float32(n_in / n_out)
+        s = np.maximum(r * (np.arange(n_out, dtype=np.float32)
+                            + np.float32(0.5)) - np.float32(0.5),
+                       np.float32(0.0))
+        i0 = s.astype(np.int64)
+        l1 = s - i0.astype(np.float32)
+        taps = _TAPS[key] = tuple(
+            torch.as_tensor(a, device=device)
+            for a in (i0, np.minimum(i0 + 1, n_in - 1),
+                      np.float32(1.0) - l1, l1))
+    return taps
+
+
 def _resize_axis(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
     """Linear resize of one axis as `F.interpolate` computes it (half-pixel
     centres, no antialias): output j reads i0 = floor(s) and i0 + 1
     (clamped to the axis) of the source index s = max(r (j + 1/2) - 1/2,
     0), r = n_in / n_out in fp32, with weights (1 - l, l), l = s - i0."""
-    n_in = x.shape[dim]
-    r = np.float32(n_in / n_out)
-    s = np.maximum(r * (np.arange(n_out, dtype=np.float32)
-                        + np.float32(0.5)) - np.float32(0.5),
-                   np.float32(0.0))
-    i0 = s.astype(np.int64)
-    l1 = s - i0.astype(np.float32)
+    i0, i1, w0, w1 = _axis_taps(x.shape[dim], n_out, x.device)
     shape = [1] * x.dim()
     shape[dim] = n_out
 
-    def take(i):
-        return x.index_select(dim, torch.as_tensor(i, device=x.device))
-
     def weight(w):
-        return torch.as_tensor(w, device=x.device).to(x.dtype).reshape(shape)
+        return w.to(x.dtype).reshape(shape)
 
-    return (weight(np.float32(1.0) - l1) * take(i0)
-            + weight(l1) * take(np.minimum(i0 + 1, n_in - 1)))
+    return (weight(w0) * x.index_select(dim, i0)
+            + weight(w1) * x.index_select(dim, i1))
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -35,8 +35,11 @@ The spans, and what reads them (perfbench/metrics/):
   `gen.chain` (each chunk's reverse chain and its sync; its duration is
   the stage log's "chain" seconds): `idle_share.gen.load`,
   `idle_share.gen.chain`, `chain_ms_per_step`.
-- `chain.step` (each step of `ddim_sample_loop`, `p_sample_loop`: the
-  host's launches only): `chain_launches_per_step`.
+- `chain.step` (each step of `ddim_sample_loop`, `p_sample_loop`,
+  `ddim_graph_loop`: the host's launches only): `chain_launches_per_step`,
+  `chain_graph_share`.
+- `chain.replay` (each replay of the DDIM step's CUDA graph, inside its
+  `chain.step`): `chain_graph_share`.
 - `decode.<stage>` (`training/ae.py`, the stage log's clock reads, on
   the decode's thread; the export worker's stages are logged, not
   recorded) and `decode.grid dispatch`: `idle_share.gen.decode`,
@@ -48,7 +51,8 @@ The spans, and what reads them (perfbench/metrics/):
 
 `counters()` snapshots the counters that the modules keeping them name
 with `counter` (the kernels' launches, `ops.fused_conv`,
-`ops.fused_mlp`; the collectives, `parallel.mesh`).
+`ops.fused_mlp`; the collectives, `parallel.mesh`; the chain's graph
+captures and replays, `diffusion.sampling`).
 """
 
 from __future__ import annotations
@@ -238,8 +242,9 @@ def counter(name: str, read: Callable[[], object]) -> None:
 def counters() -> Dict:
     """A snapshot of the named counters: {"k1.launches", "k1.forms" (by
     form), "k2.launches", "k2.shapes" ({(rows, cin, cout): n}),
-    "collectives" (by kind)} once the kernels' wrappers and
-    `parallel.mesh` are imported."""
+    "collectives" (by kind), "chain.graph_captures",
+    "chain.graph_replays"} once the kernels' wrappers, `parallel.mesh`
+    and `diffusion.sampling` are imported."""
     return {name: read() for name, read in _COUNTERS.items()}
 
 

@@ -1,7 +1,13 @@
 """Sampling loops (counterpart of `sin3dm_tpu/diffusion/sampling.py`).
 
 The JAX package compiles the reverse chain into one `lax.scan`; here it
-is a Python loop of eager steps on the device.
+is a Python loop of steps on the device.  Where `graph_engages` (a CUDA
+device, DDIM at eta 0, no guidance, whole planes: the step then draws
+nothing and copies nothing from the host), `make_sampler` captures the
+step once as a CUDA graph (`StepGraph`) and replays it at every step of
+every chain of its shapes, so that the host issues one launch a step
+and not the step's ~1,400 operations; everywhere else the steps run
+eagerly.
 
 Noise contract: sample j depends only on (seed, j).  Every sample owns
 one `torch.Generator` on the device, seeded from (seed, j)
@@ -22,12 +28,16 @@ The progressive loops keep the state after every `snapshot_every` steps
 plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
 `gaussian.condition_mean` / `condition_score`).  Each step of the plain
 loops is a `chain.step` span (`core.profiling`): the host's launches,
-no sync.
+no sync; each replay of a graph is also a `chain.replay` span, and
+`core.profiling.counters()` reads the captures and replays as
+"chain.graph_captures" and "chain.graph_replays".
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +45,7 @@ import torch
 from ..core import profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
+from ..ops import fused_conv
 from ..parallel.halo import gather_plane, shard_plane
 from .gaussian import CondFn, DiffusionConfig, ModelFn, ddim_sample_step, \
     p_sample_step
@@ -160,6 +171,130 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
     return x
 
 
+def graph_engages(device, use_ddim: bool, eta: float,
+                  cond_fn: Optional[CondFn], spatial_group) -> bool:
+    """Whether the sampler replays its DDIM step as a CUDA graph
+    (`StepGraph`): on a CUDA device, for the DDIM chain at eta 0 (no
+    noise drawn after x_T), unguided, on whole planes (the spatial
+    chain's forward holds collectives).  Masked or not."""
+    return (torch.device(device).type == "cuda" and use_ddim
+            and eta == 0.0 and cond_fn is None and spatial_group is None)
+
+
+_graph_lock = threading.Lock()
+_graph_counts = {"captures": 0, "replays": 0}
+
+
+def _count_graph(kind: str) -> None:
+    with _graph_lock:
+        _graph_counts[kind] += 1
+
+
+profiling.counter("chain.graph_captures", lambda: _graph_counts["captures"])
+profiling.counter("chain.graph_replays", lambda: _graph_counts["replays"])
+
+
+@contextlib.contextmanager
+def _side_stream(device):
+    """The block on a new stream of the card that follows the current
+    one, which then waits for it (a graph is captured off the current
+    stream); on the CPU (a test's stand-in graph), the block as it is."""
+    if device.type != "cuda":
+        yield
+        return
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        yield
+    main.wait_stream(side)
+
+
+class StepGraph:
+    """One chain step, `step(x, tb)`, captured as a CUDA graph over a
+    static state triplane and a static `tb` `[batch]` int64 buffer; the
+    graph ends with its own copy of the new state into the static state.
+
+    Construction makes the chain's first step at `t` eagerly (the warm-up
+    that capture needs, on a side stream; the state then holds its
+    result) and then the capture, in `thread_local` mode, so that other
+    threads' device work neither breaks it nor is refused.  K1's launches
+    in the capture count at each replay (`ops.fused_conv.tallied`).
+    `graph`: a stand-in for `torch.cuda.CUDAGraph()` (tests)."""
+
+    def __init__(self, step, x: Triplane, t: int, graph=None):
+        device = x.xy.device
+        self.graph = torch.cuda.CUDAGraph() if graph is None else graph
+        self.state = x.map(lambda p: p.clone(
+            memory_format=torch.contiguous_format))
+        self.tb = torch.full((x.xy.shape[0],), t, dtype=torch.int64,
+                             device=device)
+        with _side_stream(device):
+            first = step(self.state, self.tb)
+            with fused_conv.tallied() as self.k1:
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for s, n in zip(self.state, step(self.state, self.tb)):
+                        s.copy_(n)
+                finally:
+                    self.graph.capture_end()
+            for s, f in zip(self.state, first):
+                s.copy_(f)
+        _count_graph("captures")
+
+    def load(self, x: Triplane) -> None:
+        """Set the state to x (the next chain's x_T)."""
+        for s, p in zip(self.state, x):
+            s.copy_(p)
+
+    def replay(self, t: int) -> None:
+        """One step at t: the state becomes step(state, t)."""
+        self.tb.fill_(t)
+        with profiling.span("chain.replay", t=t):
+            self.graph.replay()
+        fused_conv.count_launches(self.k1)
+        _count_graph("replays")
+
+    def result(self) -> Triplane:
+        """A copy of the state: the next chain writes over the state
+        while the caller still reads this one."""
+        return self.state.map(torch.clone)
+
+
+def ddim_graph_loop(model: ModelFn, tables, cfg: DiffusionConfig,
+                    gens: Optional[Sequence[torch.Generator]], batch: int,
+                    channels: int, sizes: Tuple[int, int, int],
+                    graphs: Dict, noise: Optional[Triplane] = None,
+                    clip_denoised: bool = True, device="cuda",
+                    y0: Optional[Triplane] = None,
+                    mask: Optional[Triplane] = None,
+                    is_mask_t0: bool = False) -> Triplane:
+    """`ddim_sample_loop` at eta 0 (where `graph_engages`) with its steps
+    replayed from one `StepGraph` a (batch, channels, sizes, dtype,
+    device), kept in `graphs` (the caller's, for its lifetime) and made
+    by the first chain of its key at that chain's first step.  The same
+    steps as the eager loop, the same `chain.step` span a step."""
+    T = tables["betas"].shape[0]
+    x = _init(gens, batch, channels, sizes, noise, device, step_noise=False)
+    key = (batch, channels, tuple(sizes), x.dtype, x.xy.device)
+    g = graphs.get(key)
+
+    def step(x, tb):
+        return ddim_sample_step(model, tables, cfg, x, tb, None,
+                                clip_denoised=clip_denoised, y0=y0,
+                                mask=mask, is_mask_t0=is_mask_t0)
+
+    for t in range(T - 1, -1, -1):
+        with profiling.span("chain.step", t=t):
+            if g is None:
+                g = graphs[key] = StepGraph(step, x, t)
+                continue
+            if t == T - 1:
+                g.load(x)
+            g.replay(t)
+    return g.result()
+
+
 def _progressive(step, x: Triplane, T: int,
                  snapshot_every: int) -> Triplane:
     """Run `step` for t = T-1 down to 0, keeping the state after every
@@ -274,11 +409,16 @@ def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
             y0 = view(y0)
         if mask is not None:     # [H, W, 1] planes: no batch dim
             mask = mask.map(lambda p: shard_plane(spatial_group, p, 0))
-    if use_ddim:
+    if graph_engages(device, use_ddim, eta, None, spatial_group):
+        loop = ddim_graph_loop
+        kw = {"graphs": {}, "y0": y0, "mask": mask,
+              "is_mask_t0": is_mask_t0}
+    elif use_ddim:
         loop = ddim_sample_loop
-        kw = {"eta": eta, "y0": y0, "mask": mask, "is_mask_t0": is_mask_t0}
+        kw = {"eta": eta, "y0": y0, "mask": mask, "is_mask_t0": is_mask_t0,
+              "noise_view": view}
     else:
-        loop, kw = p_sample_loop, {}
+        loop, kw = p_sample_loop, {"noise_view": view}
 
     @torch.no_grad()
     def sample(seed: int, start: int, batch: int, channels: int,
@@ -289,7 +429,7 @@ def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
             noise = view(noise)
         x = loop(model, tables, cfg, gens, batch, channels, sizes,
                  noise=noise, clip_denoised=clip_denoised, device=device,
-                 noise_view=view, **kw)
+                 **kw)
         if spatial_group is not None:
             x = x.map(lambda p: gather_plane(spatial_group, p))
         return x

@@ -38,12 +38,15 @@ the caller's current device is.
 
 `conv3x3_rollout.launches` counts every kernel launch of either wrapper
 and `conv3x3_rollout.form_launches` counts them by form (`form_name`),
-under one lock: launches from concurrent threads each count once.
+under one lock: launches from concurrent threads each count once.  A
+launch captured into a CUDA graph counts at each replay of the graph
+(`tallied`, `count_launches`), when the card runs it.
 `core.profiling.counters()` reads them as "k1.launches" and "k1.forms".
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
 import threading
@@ -250,14 +253,40 @@ def _operands(x, w, b, col3, row3, act, skip):
 # concurrent requests launch from several threads: one lock keeps each
 # count's read-modify-write whole
 _count_lock = threading.Lock()
+_local = threading.local()   # .tally: this thread's capture's launches
 
 
 def _count(act, skip, emit_stats) -> None:
     form = form_name(act is not None, skip is not None, emit_stats)
+    tally = getattr(_local, "tally", None)
+    if tally is None:
+        count_launches({form: 1})
+    else:
+        tally[form] = tally.get(form, 0) + 1
+
+
+@contextlib.contextmanager
+def tallied():
+    """For the block, in this thread, the launches are being captured
+    into a CUDA graph: they run nothing, so they are not counted but
+    tallied by form into the dict this yields, which `count_launches`
+    counts at each replay.  Other threads count as before."""
+    tally = {}
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = None
+
+
+def count_launches(forms) -> None:
+    """Count launches that the card runs, {form: n}: one launch, or one
+    replay of a graph whose capture `tallied()` tallied."""
     with _count_lock:
-        conv3x3_rollout.launches += 1
-        conv3x3_rollout.form_launches[form] = \
-            conv3x3_rollout.form_launches.get(form, 0) + 1
+        for form, n in forms.items():
+            conv3x3_rollout.launches += n
+            conv3x3_rollout.form_launches[form] = \
+                conv3x3_rollout.form_launches.get(form, 0) + n
 
 
 def _launch_f32(x, w, b, col3, row3, act, skip, emit_stats):

@@ -774,3 +774,57 @@ def test_ae_train_step_card_vs_cpu(card, tmp_path):
         lg, lc = leaves(got), leaves(want)
         for p, w in lc.items():
             assert (lg[p] - w).abs().max() <= tol * w.abs().max(), p
+
+
+# ---------------------------------------------------------------------------
+# The DDIM step replayed as a CUDA graph (diffusion/sampling.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_graph_chain_equals_the_eager_chain(card, masked):
+    """DDIM-100 from the committed tag at its plane sizes, the sampler's
+    bf16 forward: the sampler's graph chain (one capture at the first
+    chain's first step, replays after) against the eager loop, bit for
+    bit, on 3 seeds, plain and masked (`--inpaint`'s y0/mask); per chain
+    K1 launches 800, all of the default form, and the graph's captures
+    and replays 1 and 99, then 0 and 100."""
+    import os
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core import profiling
+    from sin3dm_tpu_torch.core.triplane import load_triplane_npz
+    from sin3dm_tpu_torch.diffusion import sampling as ts
+    tag = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "checkpoints", "towerruins")
+    args = cli.cfgmod.sample_args(["--tag", tag, "--use_ddim", "true",
+                                   "--timestep_respacing", "ddim100"])
+    model, tables, dcfg = cli.build_model(args, card)
+    feat = load_triplane_npz(cli.cfgmod.encoding_feat_path(tag), card)
+    C, sizes = feat.channels, feat.sizes
+    kw = {}
+    if masked:
+        kw = {"y0": feat.map(lambda p: p[None]),
+              "mask": ts.region_keep_masks(sizes, (0, 0.5, 0, 1, 0, 1),
+                                           card),
+              "is_mask_t0": True}
+    sample = ts.make_sampler(model, tables, dcfg, use_ddim=True,
+                             device=card, **kw)
+    for i, seed in enumerate((0, 1, 2)):
+        gens = ts.sample_generators(seed, 0, 1, card)
+        want = ts.ddim_sample_loop(model, tables, dcfg, gens, 1, C, sizes,
+                                   device=card, **kw)
+        before = profiling.counters()
+        got = sample(seed, 0, 1, C, sizes)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        worst = max((g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want))
+        assert worst == 0.0, f"seed {seed}: largest difference {worst}"
+        assert after["k1.launches"] - before["k1.launches"] == 800
+        assert {f: n - before["k1.forms"].get(f, 0)
+                for f, n in after["k1.forms"].items()
+                if n != before["k1.forms"].get(f, 0)} == {"default": 800}
+        assert (after["chain.graph_captures"]
+                - before["chain.graph_captures"],
+                after["chain.graph_replays"]
+                - before["chain.graph_replays"]) == ((1, 99) if i == 0
+                                                     else (0, 100))

@@ -109,6 +109,49 @@ def test_resize_bilinear(src, dst):
            jnn.resize_bilinear(jnp.asarray(x[0]), dst))
 
 
+def _resize_axis_uncached(x, dim, n_out):
+    """`_resize_axis` with its taps made from numpy at every call, as it
+    was before they were kept on the device."""
+    n_in = x.shape[dim]
+    r = np.float32(n_in / n_out)
+    s = np.maximum(r * (np.arange(n_out, dtype=np.float32)
+                        + np.float32(0.5)) - np.float32(0.5),
+                   np.float32(0.0))
+    i0 = s.astype(np.int64)
+    l1 = s - i0.astype(np.float32)
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+
+    def take(i):
+        return x.index_select(dim, torch.as_tensor(i, device=x.device))
+
+    def weight(w):
+        return torch.as_tensor(w, device=x.device).to(x.dtype).reshape(shape)
+
+    return (weight(np.float32(1.0) - l1) * take(i0)
+            + weight(l1) * take(np.minimum(i0 + 1, n_in - 1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("src,dst", [((23, 32), (11, 16)),
+                                     ((12, 9), (46, 35))])
+def test_resize_bilinear_taps_kept_on_the_device(src, dst, dtype):
+    """The taps kept per (sizes, device) give today's values bit for bit,
+    on the first call and from the cache."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_rand(rng, 2, *src, 4)).to(dtype)
+    wide = tnn._wide(x)
+    want = _resize_axis_uncached(
+        _resize_axis_uncached(wide, 2, dst[1]), 1, dst[0]).to(dtype)
+    for _ in range(2):
+        assert torch.equal(tnn.resize_bilinear(x, dst), want)
+    taps = tnn._TAPS[(src[1], dst[1], x.device)]
+    assert [t.dtype for t in taps] == [torch.int64, torch.int64,
+                                       torch.float32, torch.float32]
+    assert all(t.device == x.device for t in taps)
+
+
 def test_upsample2x_bilinear():
     rng = np.random.default_rng(6)
     x = _rand(rng, 1, 7, 5, 8)

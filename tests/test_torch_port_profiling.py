@@ -122,6 +122,7 @@ def test_follow_profiler_records_only_under_a_trace():
 
 
 def test_counters_read_the_attributes(monkeypatch):
+    from sin3dm_tpu_torch.diffusion import sampling
     from sin3dm_tpu_torch.ops import fused_conv, fused_mlp
     from sin3dm_tpu_torch.parallel import mesh
     k1, k2 = fused_conv.conv3x3_rollout, fused_mlp.skip_mlp
@@ -131,13 +132,17 @@ def test_counters_read_the_attributes(monkeypatch):
     monkeypatch.setattr(k2, "shape_launches", {(8, 4, 1): 2},
                         raising=False)
     monkeypatch.setitem(mesh.COUNTS, "all_reduce", 3)
+    monkeypatch.setattr(sampling, "_graph_counts",
+                        {"captures": 1, "replays": 99})
 
     def attrs():
         return {"k1.launches": k1.launches,
                 "k1.forms": dict(k1.form_launches),
                 "k2.launches": k2.launches,
                 "k2.shapes": dict(k2.shape_launches),
-                "collectives": dict(mesh.COUNTS)}
+                "collectives": dict(mesh.COUNTS),
+                "chain.graph_captures": sampling._graph_counts["captures"],
+                "chain.graph_replays": sampling._graph_counts["replays"]}
     before = profiling.counters()
     assert before == attrs()
     # the plain path (CPU tensors) launches no kernel and counts none
@@ -162,6 +167,10 @@ def test_counters_read_the_attributes(monkeypatch):
     assert after["k1.launches"] == 6 and after["k2.launches"] == 3
     assert after["k2.shapes"] == {(8, 4, 1): 2, (6, 8, 1): 1}
     assert sum(after["k1.forms"].values()) == 6
+    assert (after["chain.graph_captures"],
+            after["chain.graph_replays"]) == (1, 99)
+    sampling._count_graph("replays")
+    assert profiling.counters()["chain.graph_replays"] == 100
 
 
 def test_spans_share_the_profiler_clock(recorder):
