@@ -41,9 +41,13 @@ The spans, and what reads them (perfbench/metrics/):
 - `chain.replay` (each replay of the DDIM step's CUDA graph, inside its
   `chain.step`): `chain_graph_share`.
 - `decode.<stage>` (`training/ae.py`, the stage log's clock reads, on
-  the decode's thread; the export worker's stages are logged, not
-  recorded) and `decode.grid dispatch`: `idle_share.gen.decode`,
-  `decode_s_per_sample`.
+  the decode's thread) and `decode.grid dispatch`:
+  `idle_share.gen.decode`, `decode_s_per_sample`.
+- `export.<stage>` (the export tail's stages, `texel decode`, `texture
+  assembly` and `export`, from the same clock reads, on the export
+  worker's thread) and `export.png`, attr `map` (each map's PNG write of
+  the PBR export, `geometry/meshio.py`, inside `export.export`):
+  `export_s_per_sample`.
 - `train.draw`, `train.grads`, `train.apply` (each diffusion train
   step's phases): `idle_share.diff.draw`, `.grads`, `.apply`;
   `train.call` (one `step_fn` call of `DiffusionTrainLoop.run`): the

@@ -17,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..core import profiling
+
 
 def read_material_params_from_mtl(path: str) -> str:
     """The scalar params of the first material, up to its first map."""
@@ -273,7 +275,8 @@ def save_mesh_with_pbr(path: str, verts: np.ndarray, uvs: np.ndarray,
                        Ks=(0.5, 0.5, 0.5), Ke=(0, 0, 0), Ns=250, Ni=1.5,
                        d=1.0, illum=2, Ps=0.0, Pc=0.0, Pcr=0.03,
                        aniso=0.0, anisor=0.0) -> None:
-    """PBR OBJ with 4 texture maps under textures/."""
+    """PBR OBJ with 4 texture maps under textures/; each map's PNG write
+    is an `export.png` span (`core.profiling`), attr `map`."""
     assert path.endswith(".obj")
     name = os.path.basename(path)[:-4]
     tex_dir = os.path.join(os.path.dirname(path), "textures")
@@ -297,10 +300,10 @@ def save_mesh_with_pbr(path: str, verts: np.ndarray, uvs: np.ndarray,
         fh.write("map_Pr textures/roughness.png\n")
         fh.write("map_Bump -bm 1.000000 textures/normal.png\n")
 
-    _save_png(os.path.join(tex_dir, "albedo.png"), albedo_img)
-    _save_png(os.path.join(tex_dir, "metallic.png"), metallic_img)
-    _save_png(os.path.join(tex_dir, "roughness.png"), roughness_img)
-    _save_png(os.path.join(tex_dir, "normal.png"), normal_img)
+    for key, img in (("albedo", albedo_img), ("metallic", metallic_img),
+                     ("roughness", roughness_img), ("normal", normal_img)):
+        with profiling.span("export.png", map=key):
+            _save_png(os.path.join(tex_dir, f"{key}.png"), img)
 
     with open(path, "w") as fh:
         fh.write(f"mtllib {name}.mtl\n")

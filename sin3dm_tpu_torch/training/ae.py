@@ -50,7 +50,6 @@ concurrent decode threads apart.
 
 from __future__ import annotations
 
-import functools
 import json
 import os
 import threading
@@ -771,12 +770,11 @@ class AETrainer:
 
     def _submit_assemble(self, **kw) -> None:
         """Run :meth:`_texmesh_assemble` on the background writer (inline
-        when SIN3DM_ASYNC_EXPORT=0).  The writer's stages are logged and
-        record no span."""
+        when SIN3DM_ASYNC_EXPORT=0).  Its stages are the spans
+        `export.<stage>` on the thread that runs them."""
         if os.environ.get("SIN3DM_ASYNC_EXPORT", "1") in ("0", "false", ""):
             self._texmesh_assemble(**kw)
             return
-        kw["tick"] = functools.partial(kw["tick"], span=False)
         with self._export_lock:
             if self._export_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
@@ -943,13 +941,13 @@ class AETrainer:
         when this returns.
 
         Each stage is timed once, from two `time.perf_counter_ns()`
-        reads: the span `decode.<stage>` (none for the export worker's
-        stages) and, where `stage_log` is set, its entry (with the span's
-        `start_ns` and `end_ns` while spans are recorded)."""
-        def tick(save_dir, stage, t0, detail="", span=True, **info):
+        reads: the span `<family>.<stage>` (`decode`, or `export` for the
+        export tail's stages) and, where `stage_log` is set, its entry
+        (with the span's `start_ns` and `end_ns` while spans are
+        recorded)."""
+        def tick(save_dir, stage, t0, detail="", family="decode", **info):
             t = time.perf_counter_ns()
-            rec = (profiling.add("decode." + stage, t0, t, dir=save_dir)
-                   if span else None)
+            rec = profiling.add(f"{family}.{stage}", t0, t, dir=save_dir)
             if self.stage_log is not None:
                 self.stage_log.append({"dir": save_dir, "stage": stage,
                                        "seconds": (t - t0) / 1e9,
@@ -1286,12 +1284,12 @@ class AETrainer:
         t0 = time.perf_counter_ns()
         fetch, N = texel_handle
         preds = np.concatenate(fetch.wait(), axis=0)[:N]
-        t0 = tick(save_dir, "texel decode", t0)
+        t0 = tick(save_dir, "texel decode", t0, family="export")
         mask = cpu["mask"]
         v, f, uvs, tex_idx = cpu["v"], cpu["f"], cpu["uvs"], cpu["tex_idx"]
         # scatter + 3x3 seam dilation + flip in one C++ pass
         tex_img = native.tex_assemble(preds, mask, texture_reso)
-        t0 = tick(save_dir, "texture assembly", t0)
+        t0 = tick(save_dir, "texture assembly", t0, family="export")
 
         if self.acfg.data_type == "sdftex":
             if file_format == "obj":
@@ -1319,4 +1317,4 @@ class AETrainer:
                 tex_img[..., 5:])
         else:
             raise NotImplementedError(self.acfg.data_type)
-        tick(save_dir, "export", t0)
+        tick(save_dir, "export", t0, family="export")

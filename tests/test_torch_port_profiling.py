@@ -260,7 +260,8 @@ def generated(tmp_path_factory):
 def test_generate_spans(generated):
     """One `gen.load`, one `gen.chain` a chunk, chunks x steps
     `chain.step`s inside them, and the decode's stages, all on the main
-    thread; the export worker's stages record no span."""
+    thread; the export worker's stages are `export.<stage>` spans, one
+    set a sample, on the worker's thread."""
     (stages, spans), _ = generated
     main = threading.get_ident()
     by = {}
@@ -281,26 +282,30 @@ def test_generate_spans(generated):
                    for c in inside)
     assert len(by["decode.grid dispatch"]) == 2
     assert len(by["decode.texel dispatch"]) == 2
-    assert all(s.thread == main for s in spans)
+    worker = [s for s in spans if s.name.startswith("export.")]
+    assert sorted(s.name for s in worker) == sorted(
+        ["export." + w for w in WORKER] * 2)
+    assert sorted(s.attrs["dir"] for s in worker) == sorted(
+        [s.attrs["dir"] for s in by["decode.texel dispatch"]] * 3)
+    assert all(s.thread != main for s in worker)
+    assert all(s.thread == main for s in spans if s not in worker)
     assert not set(by) & {"decode." + s for s in WORKER}
 
 
 def test_generate_stage_log_reads_its_spans(generated):
     """Each stage-log entry's seconds is its span's duration (the chain's
-    over the chunk's samples), but the export worker's, which have no
-    span; with recording off the entries keep today's keys."""
+    over the chunk's samples; the export worker's stages are `export.*`
+    spans); with recording off the entries keep today's keys."""
     (stages, spans), (off_stages, off_spans) = generated
     names = {}
     for s in spans:
         names[(s.start_ns, s.end_ns)] = s
-    worker = [e for e in stages if "start_ns" not in e]
-    assert {e["stage"] for e in worker} == WORKER
+    worker = [e for e in stages if e["stage"] in WORKER]
     assert len(worker) == 2 * len(WORKER)
     for e in stages:
-        if e in worker:
-            continue
         s = names[(e["start_ns"], e["end_ns"])]
-        assert s.name in ("gen.chain", "decode." + e["stage"])
+        family = "export." if e in worker else "decode."
+        assert s.name in ("gen.chain", family + e["stage"])
         if s.name != "gen.chain":
             assert s.attrs["dir"] == e["dir"]
         assert e["seconds"] == (s.end_ns - s.start_ns) / 1e9
