@@ -36,9 +36,9 @@ The spans, and what reads them (perfbench/metrics/):
   the stage log's "chain" seconds): `idle_share.gen.load`,
   `idle_share.gen.chain`, `chain_ms_per_step`.
 - `chain.step` (each step of `ddim_sample_loop`, `p_sample_loop`,
-  `ddim_graph_loop`: the host's launches only): `chain_launches_per_step`,
-  `chain_graph_share`.
-- `chain.replay` (each replay of the DDIM step's CUDA graph, inside its
+  `ddim_graph_loop`, `p_graph_loop`: the host's launches only):
+  `chain_launches_per_step`, `chain_graph_share`.
+- `chain.replay` (each replay of the step's CUDA graph, inside its
   `chain.step`): `chain_graph_share`.
 - `decode.<stage>` (`training/ae.py`, the stage log's clock reads, on
   the decode's thread) and `decode.grid dispatch`:

@@ -2,12 +2,15 @@
 
 The JAX package compiles the reverse chain into one `lax.scan`; here it
 is a Python loop of steps on the device.  Where `graph_engages` (a CUDA
-device, DDIM at eta 0, no guidance, whole planes: the step then draws
-nothing and copies nothing from the host), `make_sampler` captures the
-step once as a CUDA graph (`StepGraph`) and replays it at every step of
-every chain of its shapes, so that the host issues one launch a step
-and not the step's ~1,400 operations; everywhere else the steps run
-eagerly.
+device, no guidance, whole planes), `make_sampler` captures the step
+once as a CUDA graph (`StepGraph`) and replays it at every step of every
+chain of its shapes (`p_graph_loop`, `ddim_graph_loop`), so that the
+host issues one graph launch a step and not the step's ~1,400
+operations.  The DDIM step at eta 0 draws nothing; the ancestral step
+and the DDIM step at eta != 0 read each step's noise from a static
+triplane that the host fills from the samples' generators before each
+replay, so the generators advance as in the eager loops.  Everywhere
+else the steps run eagerly.
 
 Noise contract: sample j depends only on (seed, j).  Every sample owns
 one `torch.Generator` on the device, seeded from (seed, j)
@@ -25,9 +28,9 @@ plane (`noise_view`), so the sharded chain is the whole one.
 
 The progressive loops keep the state after every `snapshot_every` steps
 (and after the last), stacked `[S, B, ...]`; their last snapshot is the
-plain loop's result bit for bit.  Every loop takes a `cond_fn` (guidance,
-`gaussian.condition_mean` / `condition_score`).  Each step of the plain
-loops is a `chain.step` span (`core.profiling`): the host's launches,
+plain loop's result bit for bit.  Every eager loop takes a `cond_fn`
+(guidance, `gaussian.condition_mean` / `condition_score`).  Each step of
+the plain loops is a `chain.step` span (`core.profiling`): the host's launches,
 no sync; each replay of a graph is also a `chain.replay` span, and
 `core.profiling.counters()` reads the captures and replays as
 "chain.graph_captures" and "chain.graph_replays".
@@ -36,6 +39,7 @@ no sync; each replay of a graph is also a `chain.replay` span, and
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -60,17 +64,20 @@ def sample_generators(seed: int, start: int, batch: int,
 
 
 def randn_per_sample(gens: Sequence[torch.Generator], channels: int,
-                     sizes: Tuple[int, int, int], device) -> Triplane:
-    """Batch of standard-normal triplanes; row j drawn from gens[j]."""
+                     sizes: Tuple[int, int, int], device,
+                     out: Optional[Triplane] = None) -> Triplane:
+    """Batch of standard-normal triplanes; row j drawn from gens[j],
+    plane by plane (xy, xz, yz).  `out`: draw into its planes (a graph's
+    static noise) instead of new ones."""
     H, W, D = sizes
     shapes = ((H, W, channels), (H, D, channels), (W, D, channels))
-    planes = []
-    for shape in shapes:
-        out = torch.empty((len(gens),) + shape, device=device)
+    if out is None:
+        out = Triplane(*[torch.empty((len(gens),) + shape, device=device)
+                         for shape in shapes])
+    for shape, plane in zip(shapes, out):
         for j, g in enumerate(gens):
-            torch.randn(shape, generator=g, out=out[j])
-        planes.append(out)
-    return Triplane(*planes)
+            torch.randn(shape, generator=g, out=plane[j])
+    return out
 
 
 NoiseView = Optional[Callable[[Triplane], Triplane]]
@@ -173,12 +180,14 @@ def ddim_sample_loop(model: ModelFn, tables, cfg: DiffusionConfig,
 
 def graph_engages(device, use_ddim: bool, eta: float,
                   cond_fn: Optional[CondFn], spatial_group) -> bool:
-    """Whether the sampler replays its DDIM step as a CUDA graph
-    (`StepGraph`): on a CUDA device, for the DDIM chain at eta 0 (no
-    noise drawn after x_T), unguided, on whole planes (the spatial
-    chain's forward holds collectives).  Masked or not."""
-    return (torch.device(device).type == "cuda" and use_ddim
-            and eta == 0.0 and cond_fn is None and spatial_group is None)
+    """Whether the sampler replays its step as a CUDA graph
+    (`StepGraph`): on a CUDA device, unguided (guidance runs autograd),
+    on whole planes (the spatial chain's forward holds collectives).
+    The chain does not decide it: DDPM, or DDIM at any eta, masked or
+    not (`use_ddim` and `eta` pick the graph loop, not whether one
+    engages)."""
+    return (torch.device(device).type == "cuda" and cond_fn is None
+            and spatial_group is None)
 
 
 _graph_lock = threading.Lock()
@@ -211,30 +220,38 @@ def _side_stream(device):
 
 
 class StepGraph:
-    """One chain step, `step(x, tb)`, captured as a CUDA graph over a
-    static state triplane and a static `tb` `[batch]` int64 buffer; the
-    graph ends with its own copy of the new state into the static state.
+    """One chain step, `step(x, tb)` or, where the step draws noise,
+    `step(x, tb, noise)`, captured as a CUDA graph over a static state
+    triplane, a static `tb` `[batch]` int64 buffer and the static
+    `noise` triplane (which the caller fills before each replay: the
+    graph only reads it); the graph ends with its own copy of the new
+    state into the static state.
 
     Construction makes the chain's first step at `t` eagerly (the warm-up
-    that capture needs, on a side stream; the state then holds its
-    result) and then the capture, in `thread_local` mode, so that other
-    threads' device work neither breaks it nor is refused.  K1's launches
-    in the capture count at each replay (`ops.fused_conv.tallied`).
-    `graph`: a stand-in for `torch.cuda.CUDAGraph()` (tests)."""
+    that capture needs, on a side stream, with `noise` as the caller
+    filled it; the state then holds its result) and then the capture, in
+    `thread_local` mode, so that other threads' device work neither
+    breaks it nor is refused.  K1's launches in the capture count at each
+    replay (`ops.fused_conv.tallied`).  `graph`: a stand-in for
+    `torch.cuda.CUDAGraph()` (tests)."""
 
-    def __init__(self, step, x: Triplane, t: int, graph=None):
+    def __init__(self, step, x: Triplane, t: int,
+                 noise: Optional[Triplane] = None, graph=None):
         device = x.xy.device
         self.graph = torch.cuda.CUDAGraph() if graph is None else graph
         self.state = x.map(lambda p: p.clone(
             memory_format=torch.contiguous_format))
         self.tb = torch.full((x.xy.shape[0],), t, dtype=torch.int64,
                              device=device)
+        self.noise = noise
+        self.inputs = ((self.state, self.tb) if noise is None
+                       else (self.state, self.tb, noise))
         with _side_stream(device):
-            first = step(self.state, self.tb)
+            first = step(*self.inputs)
             with fused_conv.tallied() as self.k1:
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    for s, n in zip(self.state, step(self.state, self.tb)):
+                    for s, n in zip(self.state, step(*self.inputs)):
                         s.copy_(n)
                 finally:
                     self.graph.capture_end()
@@ -248,7 +265,7 @@ class StepGraph:
             s.copy_(p)
 
     def replay(self, t: int) -> None:
-        """One step at t: the state becomes step(state, t)."""
+        """One step at t: the state becomes step(state, t[, noise])."""
         self.tb.fill_(t)
         with profiling.span("chain.replay", t=t):
             self.graph.replay()
@@ -261,38 +278,71 @@ class StepGraph:
         return self.state.map(torch.clone)
 
 
+def _graph_chain(step, x: Triplane, T: int, graphs: Dict,
+                 draw: Optional[Callable[..., Triplane]]) -> Triplane:
+    """The chain from x over t = T-1 .. 0, its steps replayed from one
+    `StepGraph` a (batch, channels, sizes, dtype, device), kept in
+    `graphs` (the caller's, for its lifetime) and made by the first
+    chain of its key at that chain's first step.  `draw(out=None)`, where
+    the step draws noise: each step's draw, into new planes for the
+    capture's first step and into the graph's static noise before each
+    replay, so the generators advance as in the eager loop.  One
+    `chain.step` span a step."""
+    key = (x.xy.shape[0], x.channels, tuple(x.sizes), x.dtype, x.xy.device)
+    g = graphs.get(key)
+    for t in range(T - 1, -1, -1):
+        with profiling.span("chain.step", t=t):
+            if g is None:
+                g = graphs[key] = StepGraph(
+                    step, x, t, None if draw is None else draw())
+                continue
+            if t == T - 1:
+                g.load(x)
+            if draw is not None:
+                draw(g.noise)
+            g.replay(t)
+    return g.result()
+
+
+def p_graph_loop(model: ModelFn, tables, cfg: DiffusionConfig,
+                 gens: Optional[Sequence[torch.Generator]], batch: int,
+                 channels: int, sizes: Tuple[int, int, int], graphs: Dict,
+                 noise: Optional[Triplane] = None,
+                 clip_denoised: bool = True, device="cuda") -> Triplane:
+    """`p_sample_loop` (where `graph_engages`) on a graph
+    (`_graph_chain`): the same draws in the same order, the same steps."""
+    T = tables["betas"].shape[0]
+    x = _init(gens, batch, channels, sizes, noise, device, step_noise=True)
+
+    def step(x, tb, step_noise):
+        return p_sample_step(model, tables, cfg, x, tb, step_noise,
+                             clip_denoised=clip_denoised)
+    return _graph_chain(step, x, T, graphs, functools.partial(
+        randn_per_sample, gens, channels, sizes, device))
+
+
 def ddim_graph_loop(model: ModelFn, tables, cfg: DiffusionConfig,
                     gens: Optional[Sequence[torch.Generator]], batch: int,
                     channels: int, sizes: Tuple[int, int, int],
                     graphs: Dict, noise: Optional[Triplane] = None,
-                    clip_denoised: bool = True, device="cuda",
-                    y0: Optional[Triplane] = None,
+                    eta: float = 0.0, clip_denoised: bool = True,
+                    device="cuda", y0: Optional[Triplane] = None,
                     mask: Optional[Triplane] = None,
                     is_mask_t0: bool = False) -> Triplane:
-    """`ddim_sample_loop` at eta 0 (where `graph_engages`) with its steps
-    replayed from one `StepGraph` a (batch, channels, sizes, dtype,
-    device), kept in `graphs` (the caller's, for its lifetime) and made
-    by the first chain of its key at that chain's first step.  The same
-    steps as the eager loop, the same `chain.step` span a step."""
+    """`ddim_sample_loop` (where `graph_engages`) on a graph
+    (`_graph_chain`); at eta 0 the step draws nothing and the graph reads
+    no noise."""
     T = tables["betas"].shape[0]
-    x = _init(gens, batch, channels, sizes, noise, device, step_noise=False)
-    key = (batch, channels, tuple(sizes), x.dtype, x.xy.device)
-    g = graphs.get(key)
+    x = _init(gens, batch, channels, sizes, noise, device,
+              step_noise=eta != 0.0)
 
-    def step(x, tb):
-        return ddim_sample_step(model, tables, cfg, x, tb, None,
-                                clip_denoised=clip_denoised, y0=y0,
+    def step(x, tb, step_noise=None):
+        return ddim_sample_step(model, tables, cfg, x, tb, step_noise,
+                                eta=eta, clip_denoised=clip_denoised, y0=y0,
                                 mask=mask, is_mask_t0=is_mask_t0)
-
-    for t in range(T - 1, -1, -1):
-        with profiling.span("chain.step", t=t):
-            if g is None:
-                g = graphs[key] = StepGraph(step, x, t)
-                continue
-            if t == T - 1:
-                g.load(x)
-            g.replay(t)
-    return g.result()
+    draw = (None if eta == 0.0 else functools.partial(
+        randn_per_sample, gens, channels, sizes, device))
+    return _graph_chain(step, x, T, graphs, draw)
 
 
 def _progressive(step, x: Triplane, T: int,
@@ -410,9 +460,12 @@ def make_sampler(model: ModelFn, tables, cfg: DiffusionConfig,
         if mask is not None:     # [H, W, 1] planes: no batch dim
             mask = mask.map(lambda p: shard_plane(spatial_group, p, 0))
     if graph_engages(device, use_ddim, eta, None, spatial_group):
-        loop = ddim_graph_loop
-        kw = {"graphs": {}, "y0": y0, "mask": mask,
-              "is_mask_t0": is_mask_t0}
+        if use_ddim:
+            loop = ddim_graph_loop
+            kw = {"graphs": {}, "eta": eta, "y0": y0, "mask": mask,
+                  "is_mask_t0": is_mask_t0}
+        else:
+            loop, kw = p_graph_loop, {"graphs": {}}
     elif use_ddim:
         loop = ddim_sample_loop
         kw = {"eta": eta, "y0": y0, "mask": mask, "is_mask_t0": is_mask_t0,

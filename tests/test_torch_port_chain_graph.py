@@ -1,8 +1,11 @@
-"""The DDIM step replayed as a CUDA graph (`diffusion/sampling.py`), on
-the CPU: when the sampler takes the graph, K1's counters under capture
-and replay with a stand-in for the graph, and the graph loop's chains
-against the eager loop with a stand-in that replays by running the step
-again.  The graph itself on the card: `tests/test_torch_port_cuda.py`."""
+"""The reverse chain's step replayed as a CUDA graph
+(`diffusion/sampling.py`), on the CPU: when the sampler takes the graph,
+K1's counters under capture and replay with a stand-in for the graph,
+and the graph loops' chains (DDIM at eta 0 and 0.3, the ancestral DDPM
+chain, whose steps read noise drawn into the graph's static buffers)
+against the eager loops with a stand-in that replays by running the
+step again.  The graph itself on the card:
+`tests/test_torch_port_cuda.py`."""
 
 import itertools
 import threading
@@ -27,23 +30,25 @@ C = 3
                              ["cpu", "cuda"], [True, False], [0.0, 0.3],
                              [False, True], [False, True])))
 def test_graph_engages(device, use_ddim, eta, guided, spatial):
-    """Only the unguided DDIM chain at eta 0 on whole planes on the card."""
+    """Every unguided chain on whole planes on the card, DDPM or DDIM at
+    any eta."""
     got = ts.graph_engages(torch.device(device), use_ddim, eta,
                            (lambda x, t: x) if guided else None,
                            object() if spatial else None)
-    assert got == (device == "cuda" and use_ddim and eta == 0.0
-                   and not guided and not spatial)
+    assert got == (device == "cuda" and not guided and not spatial)
 
 
 def test_cpu_sampler_keeps_the_eager_chain(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the graph loop ran on the CPU")
     monkeypatch.setattr(ts, "ddim_graph_loop", refuse)
-    tables = tg.tables_to_device(
-        tsched.make_schedule("linear", 100, "ddim4").tables_f32(), "cpu")
-    sample = ts.make_sampler(_model, tables, tg.DiffusionConfig(),
-                             use_ddim=True, device="cpu")
-    assert sample(0, 0, 1, C, SIZES).sizes == SIZES
+    monkeypatch.setattr(ts, "p_graph_loop", refuse)
+    for use_ddim, respacing in ((True, "ddim4"), (False, "")):
+        tables = tg.tables_to_device(tsched.make_schedule(
+            "linear", 20, respacing).tables_f32(), "cpu")
+        sample = ts.make_sampler(_model, tables, tg.DiffusionConfig(),
+                                 use_ddim=use_ddim, device="cpu")
+        assert sample(0, 0, 1, C, SIZES).sizes == SIZES
 
 
 class StandInGraph:
@@ -120,50 +125,64 @@ def _model(x, t):
     return x.map(lambda p: p * s[:, None, None, None] + 0.05)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_graph_loop_equals_the_eager_loop(monkeypatch, masked):
+PLANES = ((6, 5), (6, 4), (5, 4))
+
+
+@pytest.mark.parametrize("chain,eta,batch,masked", [
+    ("ddim", 0.0, 1, False), ("ddim", 0.0, 1, True), ("ddim", 0.3, 1, False),
+    ("ddpm", 0.0, 1, False), ("ddpm", 0.0, 2, False)])
+def test_graph_loop_equals_the_eager_loop(monkeypatch, chain, eta, batch,
+                                          masked):
     """Three chains through one graph (x_T from the seed, then given
-    noise, then another seed) equal the eager DDIM loop's bit for bit,
-    with a stand-in that replays by running the captured step; one
-    capture, every other step a replay, and the results are copies."""
+    noise, then another seed) equal the eager loop's bit for bit, with a
+    stand-in that replays by running the captured step: DDIM-10 at eta 0
+    (plain and masked) and 0.3, DDPM-30 at batch 1 and 2, whose steps
+    read each step's draw from the graph's static noise.  One capture,
+    every other step a replay, and the results are copies."""
     made, real = [], ts.StepGraph
 
-    def stand_in(step, x, t):
+    def stand_in(step, x, t, noise=None):
         graph = StandInGraph()
-        g = real(step, x, t, graph=graph)
+        g = real(step, x, t, noise, graph=graph)
 
         def run():
-            for s, n in zip(g.state, step(g.state, g.tb)):
+            for s, n in zip(g.state, step(*g.inputs)):
                 s.copy_(n)
         graph.fn = run
-        made.append(graph)
+        made.append((graph, g))
         return g
 
     monkeypatch.setattr(ts, "StepGraph", stand_in)
-    tables = tg.tables_to_device(
-        tsched.make_schedule("linear", 100, "ddim10").tables_f32(), "cpu")
+    ddim = chain == "ddim"
+    tables = tg.tables_to_device(tsched.make_schedule(
+        "linear", 100 if ddim else 30,
+        "ddim10" if ddim else "").tables_f32(), "cpu")
+    T = tables["betas"].shape[0]
     cfg = tg.DiffusionConfig()
-    kw = {}
+    kw = {"eta": eta} if ddim else {}
     if masked:
         g = torch.Generator().manual_seed(3)
-        kw = {"y0": Triplane(*[torch.randn(1, *s, C, generator=g) for s in
-                               ((6, 5), (6, 4), (5, 4))]),
-              "mask": ts.region_keep_masks(SIZES, (0, 0.5, 0, 1, 0, 1)),
-              "is_mask_t0": True}
-    noise = Triplane(*[torch.randn(1, *s, C, generator=torch.Generator()
-                                   .manual_seed(7)) for s in
-                       ((6, 5), (6, 4), (5, 4))])
+        kw.update({"y0": Triplane(*[torch.randn(1, *s, C, generator=g)
+                                    for s in PLANES]),
+                   "mask": ts.region_keep_masks(SIZES, (0, 0.5, 0, 1, 0, 1)),
+                   "is_mask_t0": True})
+    eager, graph_loop = ((ts.ddim_sample_loop, ts.ddim_graph_loop) if ddim
+                         else (ts.p_sample_loop, ts.p_graph_loop))
+    noise = Triplane(*[torch.randn(batch, *s, C, generator=torch.Generator()
+                                   .manual_seed(7)) for s in PLANES])
     graphs, outs = {}, []
     for seed, given in ((1, None), (1, noise), (2, None)):
-        gens = ts.sample_generators(seed, 0, 1, "cpu")
-        want = ts.ddim_sample_loop(_model, tables, cfg, gens, 1, C, SIZES,
-                                   noise=given, device="cpu", **kw)
-        gens = ts.sample_generators(seed, 0, 1, "cpu")
-        got = ts.ddim_graph_loop(_model, tables, cfg, gens, 1, C, SIZES,
-                                 graphs, noise=given, device="cpu", **kw)
+        gens = ts.sample_generators(seed, 0, batch, "cpu")
+        want = eager(_model, tables, cfg, gens, batch, C, SIZES,
+                     noise=given, device="cpu", **kw)
+        gens = ts.sample_generators(seed, 0, batch, "cpu")
+        got = graph_loop(_model, tables, cfg, gens, batch, C, SIZES,
+                         graphs, noise=given, device="cpu", **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         outs.append(got)
     assert len(made) == 1 and len(graphs) == 1
-    assert made[0].calls.count("replay") == 9 + 10 + 10
+    graph, g = made[0]
+    assert graph.calls.count("replay") == (T - 1) + T + T
+    assert (g.noise is None) == (ddim and eta == 0.0)
     # the results are not the graph's state, which the last chain wrote
     assert not all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))

@@ -777,7 +777,7 @@ def test_ae_train_step_card_vs_cpu(card, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# The DDIM step replayed as a CUDA graph (diffusion/sampling.py)
+# The chain's step replayed as a CUDA graph (diffusion/sampling.py)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -828,3 +828,50 @@ def test_graph_chain_equals_the_eager_chain(card, masked):
                 after["chain.graph_replays"]
                 - before["chain.graph_replays"]) == ((1, 99) if i == 0
                                                      else (0, 100))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_ddpm_graph_chain_equals_the_eager_chain(card, batch):
+    """The ancestral chain over a 50-step respaced schedule from the
+    committed tag at its plane sizes, the sampler's bf16 forward: the
+    sampler's graph chain, whose steps read each step's noise drawn from
+    the samples' generators into the graph's static buffers, against
+    the eager `p_sample_loop`, bit for bit, on 3 seeds at batch 1 and 2;
+    per chain K1 launches 8 a step, and the graph's captures and replays
+    1 and 49, then 0 and 50."""
+    import os
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core import profiling
+    from sin3dm_tpu_torch.core.triplane import load_triplane_npz
+    from sin3dm_tpu_torch.diffusion import sampling as ts
+    tag = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "checkpoints", "towerruins")
+    args = cli.cfgmod.sample_args(["--tag", tag, "--use_ddim", "true",
+                                   "--timestep_respacing", "50"])
+    model, tables, dcfg = cli.build_model(args, card)
+    T = tables["betas"].shape[0]
+    assert T == 50
+    feat = load_triplane_npz(cli.cfgmod.encoding_feat_path(tag), card)
+    C, sizes = feat.channels, feat.sizes
+    sample = ts.make_sampler(model, tables, dcfg, use_ddim=False,
+                             device=card)
+    for i, seed in enumerate((0, 1, 2)):
+        gens = ts.sample_generators(seed, 0, batch, card)
+        want = ts.p_sample_loop(model, tables, dcfg, gens, batch, C, sizes,
+                                device=card)
+        before = profiling.counters()
+        got = sample(seed, 0, batch, C, sizes)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        worst = max((g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want))
+        assert worst == 0.0, f"seed {seed}: largest difference {worst}"
+        assert after["k1.launches"] - before["k1.launches"] == 8 * T
+        assert {f: n - before["k1.forms"].get(f, 0)
+                for f, n in after["k1.forms"].items()
+                if n != before["k1.forms"].get(f, 0)} == {"default": 8 * T}
+        assert (after["chain.graph_captures"]
+                - before["chain.graph_captures"],
+                after["chain.graph_replays"]
+                - before["chain.graph_replays"]) == ((1, T - 1) if i == 0
+                                                     else (0, T))
