@@ -264,8 +264,8 @@ def _find_mtl(args):
 
 def decode(args, paths):
     """Decode saved feat.npz files: to voxel grids with --vox, else to
-    textured meshes, several samples at once in threads (their host
-    geometry overlaps; the trainer keeps their device dispatch apart)."""
+    textured meshes in one `decode_texmesh_many` call (a sample's host
+    geometry overlaps the previous sample's export)."""
     device = resolve_device(args.device, int(getattr(args, "gpu_id", 0)))
     trainer = _make_trainer(args, device)
     if args.vox:
@@ -273,24 +273,12 @@ def decode(args, paths):
             trainer.decode_voxel(os.path.dirname(p), load_triplane_npz(p),
                                  args.reso)
         return
-    mtl_path = _find_mtl(args)
-    kw = dict(n_faces=args.n_faces, texture_reso=args.texreso,
-              save_highres_mesh=False, n_surf_pc=-1, mtl_path=mtl_path,
-              file_format=args.file_format)
-    workers = min(4, max(1, len(paths)), os.cpu_count() or 1)
-    if workers == 1:
-        trainer.decode_texmesh_many(
-            [os.path.dirname(p) for p in paths],
-            [load_triplane_npz(p) for p in paths], args.reso, **kw)
-        return
-    from concurrent.futures import ThreadPoolExecutor
-
-    def decode_one(path):
-        trainer.decode_texmesh(os.path.dirname(path),
-                               load_triplane_npz(path), args.reso, **kw)
-
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(decode_one, paths))
+    trainer.decode_texmesh_many(
+        [os.path.dirname(p) for p in paths],
+        [load_triplane_npz(p) for p in paths], args.reso,
+        n_faces=args.n_faces, texture_reso=args.texreso,
+        save_highres_mesh=False, n_surf_pc=-1, mtl_path=_find_mtl(args),
+        file_format=args.file_format)
 
 
 @profiling.follow_profiler()

@@ -271,8 +271,7 @@ def ae_config_from_args(args):
 
 def ae_trainer_config_from_args(args):
     """The AE trainer's settings (the sampler's args carry the encoding
-    group too); the texel wire stays at its default (SIN3DM_TEXEL_WIRE
-    selects another)."""
+    group too)."""
     from ..training.ae import AETrainerConfig
     return AETrainerConfig(
         enc_batch_size=args.enc_batch_size,

@@ -136,10 +136,6 @@ def _declare(L: ctypes.CDLL) -> None:
                                         ctypes.c_int, c_ubyte_p,
                                         ctypes.POINTER(c_float_p)]
     L.geo_rasterize_uv_runs.restype = ctypes.c_longlong
-    L.geo_mask_compact_q16.argtypes = [
-        c_float_p, c_ubyte_p, ctypes.c_longlong, c_float_p, c_float_p,
-        ctypes.POINTER(ctypes.c_ushort)]
-    L.geo_mask_compact_q16.restype = ctypes.c_longlong
     L.geo_tex_assemble.argtypes = [c_ubyte_p, c_ubyte_p, ctypes.c_int,
                                    ctypes.c_int, c_ubyte_p]
     L.geo_tex_assemble.restype = ctypes.c_longlong
@@ -311,26 +307,6 @@ def rasterize_uv_runs(uvs: np.ndarray, tri_uv: np.ndarray,
     if n < 0:
         raise MemoryError("geo_rasterize_uv_runs: allocation failed")
     return mask.astype(bool), _take(out_runs, int(n) * 7).reshape(-1, 7)
-
-
-def mask_compact_q16(pos: np.ndarray, mask: np.ndarray, lo: np.ndarray,
-                     span: np.ndarray) -> np.ndarray:
-    """`np.clip(np.rint((pos[mask] - lo) / span * 65535), 0, 65535)` as
-    uint16 `[count, 3]`, in one pass (float32 in the same order)."""
-    p = _f32(pos).reshape(-1, 3)
-    m = np.ascontiguousarray(mask, np.uint8).reshape(-1)
-    if p.shape[0] != m.shape[0]:
-        raise ValueError(f"mask_compact_q16: {p.shape[0]} positions, "
-                         f"{m.shape[0]} mask values")
-    lo = _f32(lo).reshape(3)
-    span = _f32(span).reshape(3)
-    out = np.empty((int(m.sum()), 3), np.uint16)
-    lib().geo_mask_compact_q16(
-        p.ctypes.data_as(c_float_p), m.ctypes.data_as(c_ubyte_p),
-        p.shape[0], lo.ctypes.data_as(c_float_p),
-        span.ctypes.data_as(c_float_p),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ushort)))
-    return out
 
 
 def tex_assemble(preds: np.ndarray, mask: np.ndarray, reso: int

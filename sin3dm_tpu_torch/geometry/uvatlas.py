@@ -594,27 +594,17 @@ def _emit(f, scale, pos, rot, chart_rects, chart_vert_uv):
     return uvs_out.astype(np.float64), tex_idx.astype(np.int64)
 
 
-def uv_unwrap_and_rasterize(v: np.ndarray, f: np.ndarray, resolution: int):
+def uv_unwrap_and_rasterize_runs(v: np.ndarray, f: np.ndarray,
+                                 resolution: int):
     """Full xatlas_uvmap replacement (`utils3d.py:228-251`): parametrize,
-    rasterize the UV charts at `resolution`, return
-    (uvs, mesh_tex_idx, gb_pos [R,R,3], mask [R,R]).
+    rasterize the UV charts at `resolution` with the RUN-LENGTH position
+    wire: no dense [R,R,3] position image is ever built — texel positions
+    come back as per-row spans for on-device expansion (the texture bake's
+    compact host->device wire, `training/ae.py _dispatch_texels_runs`).
 
     Padding is resolution-aware (2 texels between charts): with hundreds
     of charts, fixed padding eats most of the atlas and starves texel
-    density."""
-    uvs, tex_idx = parametrize(v, f, padding=max(2.0 / resolution, 5e-4))
-    gb_pos, mask = native.rasterize_uv(
-        uvs.astype(np.float32), tex_idx.astype(np.int32),
-        v.astype(np.float32), f.astype(np.int32), resolution)
-    return uvs, tex_idx, gb_pos, mask
-
-
-def uv_unwrap_and_rasterize_runs(v: np.ndarray, f: np.ndarray,
-                                 resolution: int):
-    """`uv_unwrap_and_rasterize` with the RUN-LENGTH position wire: no
-    dense [R,R,3] position image is ever built — texel positions come
-    back as per-row spans for on-device expansion (the texture bake's
-    compact host->device wire, `training/ae.py _dispatch_texels_runs`).
+    density.
 
     Returns (uvs, mesh_tex_idx, mask [R,R], runs [n,7] float32)."""
     uvs, tex_idx = parametrize(v, f, padding=max(2.0 / resolution, 5e-4))

@@ -385,18 +385,10 @@ def decode_texels(params: Dict, cfg: AEConfig, tex_planes: Triplane,
                                      normalize_points(pts, aabb))
 
 
-def decode_texels_q16(params: Dict, cfg: AEConfig, tex_planes: Triplane,
-                      q: torch.Tensor) -> torch.Tensor:
-    """`decode_texels` over AABB-relative 16-bit coordinates
-    q = round((p - lo) / (hi - lo) * 65535), given widened to int32."""
-    x = q.float() * (2.0 / 65535.0) - 1.0
-    return _decode_texels_normalized(params, cfg, tex_planes, x)
-
-
 def decode_texels_runs(params: Dict, cfg: AEConfig, tex_planes: Triplane,
                        offsets: torch.Tensor, starts: torch.Tensor,
-                       steps: torch.Tensor, i0: int, aabb: torch.Tensor,
-                       batch: int, quantized: bool = False) -> torch.Tensor:
+                       steps: torch.Tensor, i0: int,
+                       batch: int) -> torch.Tensor:
     """`decode_texels` over the run-length texel wire: texel positions are
     affine along each rasterized UV row, so the host sends per-run
     (start, step) and cumulative counts, and the positions of global texel
@@ -404,20 +396,16 @@ def decode_texels_runs(params: Dict, cfg: AEConfig, tex_planes: Triplane,
     count decode values the caller trims.
 
     offsets `[Rp+1]` int32 cumulative texel counts (padding repeats the
-    total); starts/steps `[Rp, 3]`.  `quantized` (the compact wire):
-    starts are AABB-relative 16-bit values widened to int32, steps fp16 in
-    normalized units, expanded in fp32 in the JAX package's order; else
-    both are fp32 world units."""
+    total); starts/steps `[Rp, 3]` of the compact wire: starts are
+    AABB-relative 16-bit values widened to int32, steps fp16 in normalized
+    units, expanded in fp32 in the JAX package's order."""
     dev = offsets.device
     i = i0 + torch.arange(batch, dtype=torch.int32, device=dev)
     j = torch.searchsorted(offsets, i, right=True) - 1
     j = torch.clamp(j, 0, starts.shape[0] - 1)
     o = (i - offsets[j]).float()
-    if quantized:
-        x = (starts[j].float() * (2.0 / 65535.0) - 1.0
-             + steps[j].float() * o[:, None])
-    else:
-        x = normalize_points(starts[j] + steps[j] * o[:, None], aabb)
+    x = (starts[j].float() * (2.0 / 65535.0) - 1.0
+         + steps[j].float() * o[:, None])
     return _decode_texels_normalized(params, cfg, tex_planes, x)
 
 

@@ -45,7 +45,7 @@ them as the plain fp32 heads instead.
 Device work is queued on the current stream; results travel to the host
 by copies into pinned memory that do not block (`_Fetch`), and the host
 reads them after their event.  One lock keeps the device dispatch of
-concurrent decode threads apart.
+concurrent callers apart.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from ..core import checkpoint as ckpt
 from ..core import logger, profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
-from ..dataio.grid import grid_resolutions, sample_grid_points_aabb
+from ..dataio.grid import grid_resolutions
 from ..geometry import meshio, meshproc, native, uvatlas
 from ..models import autoencoder as ae
 from ..ops import pack_params
@@ -94,13 +94,6 @@ class AETrainerConfig:
     fm_reso: int = 128
     # train steps per call of the step function
     steps_per_call: int = 1
-    # texture-bake point wire (SIN3DM_TEXEL_WIRE overrides):
-    #   "runs" (default): per-row position spans expanded on the device,
-    #       compact pack of u16 starts + f16 normalized steps, 16 B/run,
-    #   "runs32": the same spans in fp32 (28 B/run, positions exact),
-    #   "u16": AABB-relative uint16 points,
-    #   "f32": dense fp32 points.
-    texel_wire: str = "runs"
 
 
 class AEData(NamedTuple):
@@ -115,13 +108,6 @@ class AEData(NamedTuple):
     pts_on_surf: Optional[torch.Tensor]
     tex_on_surf: Optional[torch.Tensor]
     aabb: torch.Tensor           # [6]
-
-
-class TexelRuns(NamedTuple):
-    """Run-length texel wire payload (`geometry/native.py
-    rasterize_uv_runs`): `[n, 7]` float32 rows of (start xyz, step xyz,
-    length) in row-major masked order."""
-    runs: np.ndarray
 
 
 SHUFFLE_SEED = 12345
@@ -530,9 +516,10 @@ class _Fetch:
 
 class GeoGrid(NamedTuple):
     """A dispatched geo-grid decode: the device grid `[X, Y, Z]` (int8, or
-    fp16 for the sdf data type), its int8 scale (or None), the sparse
-    wire's shapes (or None), the fetch of what goes to the host (the
-    sparse arrays, else the grid) and the host seconds of the dispatch."""
+    fp16 for the sdf data type), its int8 scale and the sparse wire's
+    shapes (both None where the grid is fp16), the fetch of what goes to
+    the host (the sparse arrays, else the grid) and the host seconds of
+    the dispatch."""
     grid: torch.Tensor
     quant: Optional[float]
     sparse: Optional[_sg.SparseGrid]
@@ -583,13 +570,12 @@ class AETrainer:
         # and the export worker where a caller sets a list here (`generate`
         # does, for its own call): {"dir", "stage", "seconds", ...}
         self.stage_log: Optional[List[Dict]] = None
-        # keeps the device dispatch of concurrent decode threads apart
+        # keeps the device dispatch of concurrent callers apart
         self._device_lock = threading.Lock()
         # one background writer for the export tail (texel fetch, texture
         # assembly, PNG/OBJ write): its C++ and zlib parts release the
         # interpreter lock, so it overlaps the next sample's geometry; one
-        # worker keeps file outputs ordered.  SIN3DM_ASYNC_EXPORT=0 runs
-        # the tail inline.
+        # worker keeps file outputs ordered.
         self._export_pool = None
         self._export_futs: list = []
         self._export_lock = threading.Lock()
@@ -769,12 +755,8 @@ class AETrainer:
     # -- export worker ------------------------------------------------------
 
     def _submit_assemble(self, **kw) -> None:
-        """Run :meth:`_texmesh_assemble` on the background writer (inline
-        when SIN3DM_ASYNC_EXPORT=0).  Its stages are the spans
-        `export.<stage>` on the thread that runs them."""
-        if os.environ.get("SIN3DM_ASYNC_EXPORT", "1") in ("0", "false", ""):
-            self._texmesh_assemble(**kw)
-            return
+        """Run :meth:`_texmesh_assemble` on the background writer.  Its
+        stages are the spans `export.<stage>` on that thread."""
         with self._export_lock:
             if self._export_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
@@ -827,49 +809,18 @@ class AETrainer:
         return preds
 
     @torch.no_grad()
-    def decode_texels(self, feat: Triplane, points: np.ndarray, aabb=None,
-                      batch_size: int = 2 ** 20) -> np.ndarray:
-        """Texture-only point decode -> uint8 `[N, tex_channels]`."""
-        if aabb is None:
-            aabb = self.meta["aabb"]
-        points = np.asarray(points, np.float32)
-        aabb_d = self._aabb(aabb)
-        outs = []
-        with self._device_lock:
-            _, tp = self._planes(feat)
-            for i in range(0, points.shape[0], batch_size):
-                pts = torch.from_numpy(points[i:i + batch_size]).to(
-                    self.device)
-                outs.append(ae.decode_texels(self.params, self.acfg, tp, pts,
-                                             aabb_d).cpu().numpy())
-        if not outs:
-            return np.zeros((0, self.acfg.tex_channels), np.uint8)
-        return np.concatenate(outs, axis=0)
-
-    @torch.no_grad()
-    def decode_grid(self, feat: Triplane, reso: int, aabb=None,
-                    batch_size: int = 2 ** 16, dense: bool = True,
-                    geo_only: bool = False,
-                    transfer_dtype=None) -> np.ndarray:
+    def decode_grid(self, feat: Triplane, reso: int,
+                    aabb=None) -> np.ndarray:
         """Decode the AABB voxel-centre grid -> `[Nx, Ny, Nz, 1+Ct]` fp32
-        numpy, texture channels clipped to [0, 1].  `dense` decodes it as
-        plane resizes (`decode_grid_dense`), else as points; `geo_only`
-        keeps the sdf channel; `transfer_dtype` rounds the grid to that
-        type on the device first."""
+        numpy as plane resizes (`decode_grid_dense`), texture channels
+        clipped to [0, 1]."""
         if aabb is None:
             aabb = self.meta["aabb"]
         res = tuple(int(x) for x in grid_resolutions(np.asarray(aabb), reso))
-        if not dense:
-            coords = sample_grid_points_aabb(np.asarray(aabb), reso)
-            preds = self.decode_batch(feat, coords.reshape(-1, 3),
-                                      batch_size=batch_size, aabb=aabb)
-            return preds.reshape(*res, -1)
         with self._device_lock:
             geo, tex = self._planes(feat)
-            out = ae.decode_grid_dense(self.params, self.acfg, geo, tex, res,
-                                       geo_only=geo_only,
-                                       out_dtype=transfer_dtype)
-            preds = out.float().cpu().numpy()
+            preds = ae.decode_grid_dense(self.params, self.acfg, geo, tex,
+                                         res).cpu().numpy()
         if preds.shape[-1] > 1:
             preds[..., 1:] = np.clip(preds[..., 1:], 0.0, 1.0)
         return preds
@@ -982,8 +933,8 @@ class AETrainer:
             if cpu is None:   # empty surface, or sdf only: nothing to bake
                 continue
             t0 = time.perf_counter_ns()
-            texel_handle = self._dispatch_texels(feat, cpu["texels"],
-                                                 new_aabb)
+            texel_handle = self._dispatch_texels_runs(feat, cpu["texels"],
+                                                      new_aabb)
             tick(save_dir, "texel dispatch", t0,
                  f" ({texel_handle[1]} texels, {len(texel_handle[0])} "
                  "launches)", texels=texel_handle[1],
@@ -1055,8 +1006,8 @@ class AETrainer:
         """Queue the geo-only grid decode and its copy to the host.  The
         clamped TSDF becomes int8 on the device (floor quantization keeps
         every voxel's sign), scale the threshold (1.0 under sdf_renorm),
-        and travels as the sparse wire unless SIN3DM_SPARSE_GRID=0; the
-        sdf data type keeps fp16, as its path writes the raw grid."""
+        and travels as the sparse wire; the sdf data type keeps fp16 and
+        the dense grid, as its path writes the raw grid."""
         t0 = time.perf_counter_ns()
         res = tuple(int(x) for x in grid_resolutions(np.asarray(aabb), reso))
         quant = None
@@ -1070,50 +1021,41 @@ class AETrainer:
                 self.params, self.acfg, gp, tp, res, geo_only=True,
                 out_dtype=None if quant is not None else torch.float16,
                 quant_scale=quant)[..., 0]
-            sparse = None
-            if (quant is not None
-                    and os.environ.get("SIN3DM_SPARSE_GRID", "1") != "0"):
+            if quant is None:
+                sparse, fetch = None, _Fetch([grid])
+            else:
                 sparse = _sg.encode(grid)
                 fetch = _Fetch([sparse.signs, sparse.block_ids,
                                 sparse.block_vals, sparse.count])
-            else:
-                fetch = _Fetch([grid])
         t1 = time.perf_counter_ns()
         profiling.add("decode.grid dispatch", t0, t1)
         return GeoGrid(grid, quant, sparse, fetch, (t1 - t0) / 1e9)
 
     def _fetch_geo_grid(self, h: GeoGrid):
         """(dense fp32 sdf grid or None, host SparseGrid or None) of a
-        dispatched geo grid.  Marching cubes reads the sparse wire directly
-        unless SIN3DM_SPARSE_MC=0; where the flagged blocks overflowed its
-        capacity, the dense grid is fetched instead."""
-        if h.sparse is not None:
-            signs, ids, vals, count = h.fetch.wait()
-            if int(count) <= ids.shape[0]:
-                sg = h.sparse._replace(signs=signs, block_ids=ids,
-                                       block_vals=vals, count=int(count))
-                if os.environ.get("SIN3DM_SPARSE_MC", "1") != "0":
-                    return None, sg
-                return _sg.decode_host(sg, h.quant), None
-            arr = h.grid.cpu().numpy()
-        else:
-            arr = h.fetch.wait()[0]
-        if h.quant is not None:
-            # floor-quantized: bucket k covers [k, k+1), centre k + 0.5
-            return (arr.astype(np.float32) + 0.5) * (h.quant / 127.0), None
-        return arr.astype(np.float32), None
+        dispatched geo grid.  Marching cubes reads the sparse wire; where
+        the flagged blocks overflowed its capacity, the dense int8 grid is
+        fetched instead.  An fp16 grid (the sdf data type) comes dense."""
+        if h.sparse is None:
+            return h.fetch.wait()[0].astype(np.float32), None
+        signs, ids, vals, count = h.fetch.wait()
+        if int(count) <= ids.shape[0]:
+            return None, h.sparse._replace(signs=signs, block_ids=ids,
+                                           block_vals=vals, count=int(count))
+        # floor-quantized: bucket k covers [k, k+1), centre k + 0.5
+        arr = h.grid.cpu().numpy()
+        return (arr.astype(np.float32) + 0.5) * (h.quant / 127.0), None
 
     @torch.no_grad()
     def _dispatch_texels_runs(self, feat: Triplane, runs: np.ndarray,
                               aabb, batch_size: int = 2 ** 20):
-        """Queue the uint8 texel decode over the run-length wire; returns
-        (chunk fetches, N).  The compact pack (default): u16 AABB-relative
-        starts, f16 normalized steps, int32 offsets, 16 B/run;
-        SIN3DM_TEXEL_WIRE=runs32 sends fp32 spans.  Chunks are of a power
-        of two rows, 2^12 to `batch_size`."""
+        """Queue the uint8 texel decode over the run-length wire
+        (`geometry/native.py:rasterize_uv_runs`: `[n, 7]` float32 rows of
+        start xyz, step xyz, length); returns (chunk fetches, N).  The
+        compact pack: u16 AABB-relative starts, f16 normalized steps,
+        int32 offsets, 16 B/run.  Chunks are of a power of two rows, 2^12
+        to `batch_size`."""
         aabb_np = np.asarray(aabb, np.float32).reshape(-1)
-        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
-        quantized = wire != "runs32"
         lens = (runs[:, 6].astype(np.int64) if len(runs)
                 else np.zeros(0, np.int64))
         N = int(lens.sum())
@@ -1124,75 +1066,24 @@ class AETrainer:
         offsets = np.full(Rp + 1, N, np.int32)
         offsets[0] = 0
         offsets[1:len(lens) + 1] = np.cumsum(lens, dtype=np.int64)
-        if quantized:
-            lo, span = aabb_np[:3], aabb_np[3:] - aabb_np[:3]
-            starts = np.zeros((Rp, 3), np.uint16)
-            steps = np.zeros((Rp, 3), np.float16)
-            starts[:len(runs)] = np.clip(
-                np.rint((runs[:, 0:3] - lo) / span * 65535.0),
-                0.0, 65535.0).astype(np.uint16)
-            steps[:len(runs)] = (runs[:, 3:6] * (2.0 / span)).astype(
-                np.float16)
-        else:
-            starts = np.zeros((Rp, 3), np.float32)
-            steps = np.zeros((Rp, 3), np.float32)
-            starts[:len(runs)] = runs[:, 0:3]
-            steps[:len(runs)] = runs[:, 3:6]
+        lo, span = aabb_np[:3], aabb_np[3:] - aabb_np[:3]
+        starts = np.zeros((Rp, 3), np.uint16)
+        steps = np.zeros((Rp, 3), np.float16)
+        starts[:len(runs)] = np.clip(
+            np.rint((runs[:, 0:3] - lo) / span * 65535.0),
+            0.0, 65535.0).astype(np.uint16)
+        steps[:len(runs)] = (runs[:, 3:6] * (2.0 / span)).astype(np.float16)
 
         chunks = []
         with self._device_lock:
             _, tp = self._planes(feat)
             off_d = torch.from_numpy(offsets).to(self.device)
-            st_d = (_u16_to_device(starts, self.device) if quantized
-                    else torch.from_numpy(starts).to(self.device))
+            st_d = _u16_to_device(starts, self.device)
             sp_d = torch.from_numpy(steps).to(self.device)
-            aabb_d = self._aabb(aabb_np)
             for i in range(0, max(N, 1), batch_size):
                 chunks.append(ae.decode_texels_runs(
-                    self.params, self.acfg, tp, off_d, st_d, sp_d, i, aabb_d,
-                    batch_size, quantized=quantized))
-            fetch = _Fetch(chunks)
-        return fetch, N
-
-    @torch.no_grad()
-    def _dispatch_texels(self, feat: Triplane, points, aabb,
-                         batch_size: int = 2 ** 20):
-        """Queue the uint8 texel decode; returns (fetch of the chunks, N).
-        `points` is a TexelRuns payload (`_dispatch_texels_runs`) or
-        `[N, 3]` points: uint16 AABB-relative (as given, or quantized here
-        unless SIN3DM_TEXEL_WIRE=f32) or fp32."""
-        if isinstance(points, TexelRuns):
-            return self._dispatch_texels_runs(feat, points.runs, aabb,
-                                              batch_size)
-        aabb_np = np.asarray(aabb, np.float32).reshape(-1)
-        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
-        pre_q16 = isinstance(points, np.ndarray) and points.dtype == np.uint16
-        q16 = wire != "f32" or pre_q16
-        if not pre_q16:
-            points = np.asarray(points, np.float32)
-            if q16:
-                lo, span = aabb_np[:3], aabb_np[3:] - aabb_np[:3]
-                points = np.clip(np.rint((points - lo) / span * 65535.0),
-                                 0.0, 65535.0).astype(np.uint16)
-        N = points.shape[0]
-        chunks = []
-        with self._device_lock:
-            _, tp = self._planes(feat)
-            aabb_d = self._aabb(aabb_np)
-            for i in range(0, N, batch_size):
-                chunk = points[i:i + batch_size]
-                n = chunk.shape[0]
-                if n < batch_size:   # one shape for every chunk
-                    chunk = np.pad(chunk, ((0, batch_size - n), (0, 0)))
-                if q16:
-                    out = ae.decode_texels_q16(
-                        self.params, self.acfg, tp,
-                        _u16_to_device(chunk, self.device))
-                else:
-                    out = ae.decode_texels(
-                        self.params, self.acfg, tp,
-                        torch.from_numpy(chunk).to(self.device), aabb_d)
-                chunks.append(out)
+                    self.params, self.acfg, tp, off_d, st_d, sp_d, i,
+                    batch_size))
             fetch = _Fetch(chunks)
         return fetch, N
 
@@ -1255,27 +1146,12 @@ class AETrainer:
                 os.path.join(save_dir, f"surf_pc_n{n_surf_pc}.obj"),
                 surf_pts, np.clip(preds[..., 1:4], 0, 1))
 
-        wire = os.environ.get("SIN3DM_TEXEL_WIRE", self.tcfg.texel_wire)
-        if wire.startswith("runs"):
-            uvs, tex_idx, mask, runs = uvatlas.uv_unwrap_and_rasterize_runs(
-                v, f, texture_reso)
-            t0 = tick(save_dir, "uv atlas + raster", t0,
-                      f" ({int(mask.sum())} texels, {len(runs)} runs)")
-            texels = TexelRuns(runs)
-        else:
-            uvs, tex_idx, gb_pos, mask = uvatlas.uv_unwrap_and_rasterize(
-                v, f, texture_reso)
-            t0 = tick(save_dir, "uv atlas + raster", t0,
-                      f" ({int(mask.sum())} texels)")
-            if wire != "f32":
-                lo = np.asarray(new_aabb[:3], np.float32)
-                span = np.asarray(new_aabb[3:], np.float32) - lo
-                texels = native.mask_compact_q16(
-                    gb_pos.reshape(-1, 3), mask.reshape(-1), lo, span)
-            else:
-                texels = gb_pos.reshape(-1, 3)[mask.reshape(-1)]
+        uvs, tex_idx, mask, runs = uvatlas.uv_unwrap_and_rasterize_runs(
+            v, f, texture_reso)
+        tick(save_dir, "uv atlas + raster", t0,
+             f" ({int(mask.sum())} texels, {len(runs)} runs)")
         return {"v": v, "f": f, "uvs": uvs, "tex_idx": tex_idx,
-                "mask": mask, "texels": texels}
+                "mask": mask, "texels": runs}
 
     def _texmesh_assemble(self, save_dir: str, cpu: Dict, texel_handle,
                           texture_reso: int, mtl_path, file_format: str,

@@ -502,14 +502,14 @@ def test_int8_grid_and_texels_on_card(card, bf16, monkeypatch):
     from sin3dm_tpu_torch.models import autoencoder as ae
     from sin3dm_tpu_torch.training.ae import _u16_to_device
     monkeypatch.setenv("SIN3DM_DECODE_BF16", bf16)
-    monkeypatch.setenv("SIN3DM_SPARSE_GRID", "0")
     cd, feat_path = _committed_trainer(card)
     hd, _ = _committed_trainer("cpu")
     feat = load_triplane_npz(feat_path)
     aabb = cd._feat_aabb(feat)
     quant = float(cd.meta["threshold"])
-    gc = cd._dispatch_geo_grid(feat, 64, aabb).fetch.wait()[0]
-    gh = hd._dispatch_geo_grid(feat, 64, aabb).fetch.wait()[0]
+    handles = [t._dispatch_geo_grid(feat, 64, aabb) for t in (cd, hd)]
+    assert all(h.sparse is not None for h in handles)
+    gc, gh = [h.grid.cpu().numpy() for h in handles]
     f32 = ae.decode_grid_dense(cd.params, cd.acfg, *cd._planes(feat),
                                gc.shape, geo_only=True)[..., 0].cpu().numpy()
     one = np.float32(1.0)

@@ -119,14 +119,11 @@ def _trainers(net, dt, seed=0):
     return jcfg, jt, tt
 
 
-@pytest.mark.parametrize("wire", ["runs", "runs32"])
 @pytest.mark.parametrize("net,dt", CONFIGS)
-def test_decode_texels_runs_matches_jax(sphere_atlas, net, dt, wire,
-                                        monkeypatch):
+def test_decode_texels_runs_matches_jax(sphere_atlas, net, dt):
     """The texel decode over the run-length wire (the compact u16/f16
-    pack, and fp32 spans), packed and expanded by each trainer from the
-    same runs: uint8 within 1, fewer than 1 % of the values differing."""
-    monkeypatch.setenv("SIN3DM_TEXEL_WIRE", wire)
+    pack), packed and expanded by each trainer from the same runs: uint8
+    within 1, fewer than 1 % of the values differing."""
     v, f = sphere_atlas
     _, _, _, runs = uvatlas.uv_unwrap_and_rasterize_runs(v, f, 128)
     jcfg, jt, tt = _trainers(net, dt)

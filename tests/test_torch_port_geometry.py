@@ -111,12 +111,6 @@ def test_rasterizers_and_texel_wire(mesh, flavour):
     pos, mask = tnat.rasterize_uv(*args)
     _same((pos, mask), jnat.rasterize_uv(*args))
     _same(tnat.rasterize_uv_runs(*args), jnat.rasterize_uv_runs(*args))
-    lo = np.array([-1.0, -0.9, -0.8], np.float32)
-    span = np.array([2.0, 1.8, 1.6], np.float32)
-    _same([tnat.mask_compact_q16(pos.reshape(-1, 3), mask.reshape(-1), lo,
-                                 span)],
-          [jnat.mask_compact_q16(pos.reshape(-1, 3), mask.reshape(-1), lo,
-                                 span)])
     rng = np.random.default_rng(3)
     for C in (3, 8, 1):
         preds = rng.integers(0, 256, (int(mask.sum()), C)).astype(np.uint8)

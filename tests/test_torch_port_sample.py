@@ -345,10 +345,10 @@ def test_mesh_path_chunks_and_jax_face_count(mesh_runs):
         _faces(out / "000" / "object.obj")
 
 
-def test_mesh_decode_threads_write_what_generate_wrote(mesh_runs, tmp_path,
-                                                       monkeypatch):
-    """The standalone mesh decode (`cli.decode` without --vox: one thread
-    per sample, device dispatch under the trainer's lock, one export
+def test_mesh_decode_writes_what_generate_wrote(mesh_runs, tmp_path,
+                                                monkeypatch):
+    """The standalone mesh decode (`cli.decode` without --vox: one
+    `decode_texmesh_many` call over the samples, the export on its
     worker) on generate's feat.npz files writes the same object files."""
     monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
     out = mesh_runs[2][0]

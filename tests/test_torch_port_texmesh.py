@@ -2,8 +2,11 @@
 tag's own `encoding/feat.npz` to a textured mesh through
 `AETrainer.decode_texmesh` in the JAX package and in the port, on the
 CPU in fp32 (SIN3DM_DECODE_BF16=0), at reso 64, texture reso 256 and
-2,000 faces."""
+2,000 faces; and the port's one decode route: the sparse wire's
+overflow to the dense grid, and the files that the variables which once
+chose another route leave unchanged."""
 
+import json
 import os
 
 import numpy as np
@@ -18,6 +21,7 @@ from sin3dm_tpu.training.ae import AETrainerConfig as JTCfg
 from sin3dm_tpu_torch.core.triplane import load_triplane_npz as tload
 from sin3dm_tpu_torch.geometry import uvatlas
 from sin3dm_tpu_torch.models import autoencoder as tae
+from sin3dm_tpu_torch.ops import sparse_grid as tsg
 from sin3dm_tpu_torch.training.ae import AETrainer as TTrainer
 from sin3dm_tpu_torch.training.ae import AETrainerConfig as TTCfg
 
@@ -26,6 +30,7 @@ ENC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                    "checkpoints", "towerruins", "encoding")
 FEAT = os.path.join(ENC, "feat.npz")
 RESO, TEX, FACES = 64, 256, 2000
+ENCODE = tsg.encode
 
 
 def _faces(path):
@@ -36,7 +41,8 @@ def _faces(path):
 @pytest.fixture(scope="module")
 def decoded(tmp_path_factory):
     """Each side's object files from decode_texmesh, and each side's int8
-    grid from its geo-grid dispatch on the dense wire."""
+    grid from its geo-grid dispatch (the port's: the device grid that its
+    sparse wire encodes)."""
     mp = pytest.MonkeyPatch()
     mp.setenv("SIN3DM_DECODE_BF16", "0")
     out = tmp_path_factory.mktemp("texmesh")
@@ -48,15 +54,14 @@ def decoded(tmp_path_factory):
                       texture_reso=TEX)
     tt.decode_texmesh(str(out / "port"), tload(FEAT), RESO, n_faces=FACES,
                       texture_reso=TEX)
-    mp.setenv("SIN3DM_SPARSE_GRID", "0")
     jfeat = jload(FEAT).map(lambda p: p[None])
     want = np.asarray(jt._dispatch_geo_grid(
         jfeat, RESO, jt._resize_aabb((92, 128, 92)))[0])[..., 0]
     h = tt._dispatch_geo_grid(tload(FEAT), RESO, tt._feat_aabb(tload(FEAT)))
-    assert h.sparse is None
+    assert h.sparse is not None
     assert h.quant == pytest.approx(float(jt.meta["threshold"]))
     mp.undo()
-    yield out, want, h.fetch.wait()[0], jt, tt
+    yield out, want, h.grid.cpu().numpy(), jt, tt
 
 
 def test_voxels_and_int8_grid(decoded):
@@ -137,3 +142,73 @@ def test_texels_on_one_atlas(decoded):
     print(f"texels on one atlas: max diff {d.max()}, {(d > 0).mean():.3%} "
           "differ")
     assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def _wire_capacity(monkeypatch, blocks=None):
+    """Give the sparse wire a capacity of `blocks` (None: every block, so
+    that marching cubes reads the wire at these small grids, whose
+    flagged blocks overflow the default fifth of them)."""
+    def capped(q, capacity=None):
+        every = int(np.prod(tsg.padded_shape(q.shape))) // tsg.BLOCK ** 3
+        return ENCODE(q, capacity=blocks or every)
+    monkeypatch.setattr(tsg, "encode", capped)
+
+
+def test_overflowed_sparse_wire_falls_back_to_the_dense_grid(decoded,
+                                                             monkeypatch):
+    """Where the flagged blocks overflow the sparse wire's capacity (here
+    one block), `_fetch_geo_grid` hands marching cubes the dense grid:
+    (int8 + 0.5) * thr / 127 of the dispatched grid, whose occupancy is
+    the wire's where every block fits."""
+    tt = decoded[4]
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    feat = tload(FEAT)
+    aabb = tt._feat_aabb(feat)
+    _wire_capacity(monkeypatch)
+    _, fitted = tt._fetch_geo_grid(tt._dispatch_geo_grid(feat, RESO, aabb))
+    assert fitted is not None
+    _wire_capacity(monkeypatch, 1)
+    h = tt._dispatch_geo_grid(feat, RESO, aabb)
+    assert h.sparse is not None and int(h.sparse.count) > 1
+    dense, sparse = tt._fetch_geo_grid(h)
+    assert sparse is None
+    q = h.grid.cpu().numpy()
+    np.testing.assert_array_equal(
+        dense, (q.astype(np.float32) + 0.5) * (h.quant / 127.0))
+    np.testing.assert_array_equal(dense < 0, tsg.occupancy_host(fitted))
+
+
+def test_deleted_route_variables_change_nothing(tmp_path, monkeypatch):
+    """The decode has one route: with the variables that once chose
+    another (the fp32 texel points, the dense int8 grid, marching cubes
+    over the dense grid, the export inline) set to those choices, the
+    committed PBR tag's decode_texmesh writes the same bytes, four maps
+    whose heads do not saturate included.  Every block fits the sparse
+    wire, so that marching cubes reads it."""
+    enc = os.path.join(os.path.dirname(ENC), "..", "towerruins-pbr",
+                       "encoding")
+    with open(os.path.join(enc, "args.json")) as fh:
+        a = json.load(fh)
+    tt = TTrainer(enc, tae.AEConfig(**{k: a[k] for k in (
+        "data_type", "enc_net_type", "fdim_geo", "fdim_tex", "fdim_up",
+        "hidden_dim", "n_hidden_layers")}), "cpu")
+    tt.load_ckpt("final")
+    feat = tload(os.path.join(enc, "feat.npz"))
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    _wire_capacity(monkeypatch)
+    old = {"SIN3DM_TEXEL_WIRE": "f32", "SIN3DM_SPARSE_GRID": "0",
+           "SIN3DM_SPARSE_MC": "0", "SIN3DM_ASYNC_EXPORT": "0"}
+    files = []
+    for env in ({}, old):
+        d = tmp_path / f"env{len(env)}"
+        with monkeypatch.context() as mp:
+            for k, v in env.items():
+                mp.setenv(k, v)
+            tt.decode_texmesh(str(d), feat, RESO, n_faces=500,
+                              texture_reso=128)
+        files.append({str(f.relative_to(d)): f.read_bytes()
+                      for f in sorted(d.rglob("*")) if f.is_file()})
+    assert "textures/albedo.png" in files[0] and "voxel.npz" in files[0]
+    assert files[1].keys() == files[0].keys()
+    for name, data in files[0].items():
+        assert files[1][name] == data, name
