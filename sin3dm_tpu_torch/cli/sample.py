@@ -285,13 +285,19 @@ def decode(args, paths):
 def generate(args, group=None):
     """Sample and decode to meshes through the trainer's cross-chunk
     pipeline (`AETrainer.pipelined_generate`): chunks of --pipeline_chunk
-    samples; a chunk's geo grids are queued after its chain, its meshes
-    decoded after the next chunk's chain.  Sample j depends only on
-    (--seed, j), whatever the chunking.  With a data `group`, this
-    rank's block of the samples.  Returns (paths, the trainer's stage log, with
-    each sample's share of its chunk's chain).  Spans (`core.profiling`):
-    `gen.load`, one `gen.chain` a chunk (its duration is the chunk's
-    "chain" seconds), the chain's steps and the decode's stages."""
+    samples; a chunk's geo grids are queued after its chain, and its
+    meshes are decoded on the decode worker while the next chunk's chain
+    runs on the device.  The previous chunk's decode is handed over
+    before a chain's launches, or after them where the chain captures a
+    graph (a chunk at another batch than the first).  Sample j depends
+    only on (--seed, j), whatever the chunking.  With a data `group`,
+    this rank's block of the samples.  Returns (paths, the trainer's
+    stage log, with each sample's share of its chunk's chain).  Spans
+    (`core.profiling`): `gen.load`, one `gen.chain` a chunk (the main
+    thread's chain from its first launch to its end: its duration is the
+    chunk's "chain" seconds), the chain's steps, `decode.grid dispatch`
+    and `decode.wait` on the main thread, and the decode's stages on the
+    decode worker."""
     with profiling.span("gen.load"):
         sampler, C, sizes, device = _build_sampler(args)
         trainer = _make_trainer(args, device)
@@ -307,10 +313,16 @@ def generate(args, group=None):
     paths = []
     chains = {}   # chunk -> its timed gen.chain span
 
-    def sample_chunk(i):
+    def sample_chunk(i, hand_over):
+        bs = min(chunk, end - i)
+        if bs == chunk:   # the first chunk's batch: no new graph
+            hand_over()
         with profiling.timed("gen.chain", j=i) as chains[i]:
-            samples = sampler(seed, i, min(chunk, end - i), C, sizes)
-            _sync(device)
+            samples = sampler(seed, i, bs, C, sizes)
+            done = _queued(device)
+            hand_over()
+            if done is not None:
+                done.synchronize()
         return samples
 
     def prepare_chunk(i, samples):
@@ -336,6 +348,17 @@ def generate(args, group=None):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _queued(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event after the work queued so far on the card's current stream,
+    whose wait leaves out what other threads queue later; None on the
+    CPU."""
+    if device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return done
 
 
 def run(args, group=None, spatial_group=None) -> dict:

@@ -32,17 +32,23 @@ no host-op events for the spans.
 The spans, and what reads them (perfbench/metrics/):
 
 - `gen.load` (`cli/sample.py:generate`: the models' load and pack) and
-  `gen.chain` (each chunk's reverse chain and its sync; its duration is
-  the stage log's "chain" seconds): `idle_share.gen.load`,
-  `idle_share.gen.chain`, `chain_ms_per_step`.
+  `gen.chain` (each chunk's reverse chain on the main thread, from its
+  first launch to the end of its wait; its duration is the stage log's
+  "chain" seconds): `idle_share.gen.load`, `idle_share.gen.chain`,
+  `chain_ms_per_step`; with the decode worker's `decode.*` spans,
+  `chain_hidden_share`.
 - `chain.step` (each step of `ddim_sample_loop`, `p_sample_loop`,
   `ddim_graph_loop`, `p_graph_loop`: the host's launches only):
   `chain_launches_per_step`, `chain_graph_share`.
 - `chain.replay` (each replay of the step's CUDA graph, inside its
   `chain.step`): `chain_graph_share`.
 - `decode.<stage>` (`training/ae.py`, the stage log's clock reads, on
-  the decode's thread) and `decode.grid dispatch`:
-  `idle_share.gen.decode`, `decode_s_per_sample`.
+  the decode's thread: the decode worker's in `generate`), and on the
+  main thread `decode.grid dispatch` and `decode.wait` (the wait for the
+  decode worker, `AETrainer.pipelined_generate`):
+  `idle_share.gen.decode` (the main thread's), `decode_s_per_sample`
+  (the stage log's), `chain_hidden_share` (the worker's beside
+  `gen.chain`).
 - `export.<stage>` (the export tail's stages, `texel decode`, `texture
   assembly` and `export`, from the same clock reads, on the export
   worker's thread) and `export.png`, attr `map` (each map's PNG write of

@@ -35,7 +35,9 @@ Decode.  Dense grids and voxel files, and the mesh path: a dense int8 sdf
 grid on the device, sent to the host as the sparse near-surface wire,
 marching cubes, decimation, UV atlas and raster on the host, texel
 colours decoded on the device over the run-length texel wire, and the
-textured mesh written by a background export worker.  The skip heads run
+textured mesh written by a background export worker; `pipelined_generate`
+runs each chunk's mesh decode on a decode worker thread beside the next
+chunk's reverse chain.  The skip heads run
 through K2, which reads the packed weights (`ops.pack_params`): the
 trainer packs them again after every parameter update that precedes a
 decode, and no checkpoint holds a pack.  `SIN3DM_FUSED_HEADS=0` (JAX's
@@ -889,7 +891,9 @@ class AETrainer:
         With `defer_last` the last sample's assembly is not submitted: its
         kwargs come back, for the next call's `pending_in`
         (:meth:`pipelined_generate`).  Otherwise every export has finished
-        when this returns.
+        when this returns.  On an error the assembly still pending (a
+        sample decoded before the one that failed) goes to the export
+        worker before the error is raised.
 
         Each stage is timed once, from two `time.perf_counter_ns()`
         reads: the span `<family>.<stage>` (`decode`, or `export` for the
@@ -916,36 +920,43 @@ class AETrainer:
             grid_handles = list(grid_handles)
 
         pending = pending_in
-        for idx, (save_dir, feat, new_aabb) in enumerate(
-                zip(save_dirs, feats, aabbs)):
-            t0 = time.perf_counter_ns()
-            h = grid_handles[idx]
-            grid_handles[idx] = None
-            sdf_grid, sparse = self._fetch_geo_grid(h)
-            t0 = tick(save_dir, "sdf grid", t0,
-                      " (sparse wire)" if sparse is not None
-                      else f" {sdf_grid.shape}", dispatch=h.seconds)
-            cpu = self._texmesh_geometry(
-                save_dir, feat, sdf_grid, new_aabb, reso, n_faces,
-                n_surf_pc, texture_reso, only_largest_cc,
-                save_highres_mesh, save_voxel, tick, t0,
-                sparse=sparse, quant=h.quant)
-            if cpu is None:   # empty surface, or sdf only: nothing to bake
-                continue
-            t0 = time.perf_counter_ns()
-            texel_handle = self._dispatch_texels_runs(feat, cpu["texels"],
-                                                      new_aabb)
-            tick(save_dir, "texel dispatch", t0,
-                 f" ({texel_handle[1]} texels, {len(texel_handle[0])} "
-                 "launches)", texels=texel_handle[1],
-                 launches=len(texel_handle[0]))
+        try:
+            for idx, (save_dir, feat, new_aabb) in enumerate(
+                    zip(save_dirs, feats, aabbs)):
+                t0 = time.perf_counter_ns()
+                h = grid_handles[idx]
+                grid_handles[idx] = None
+                sdf_grid, sparse = self._fetch_geo_grid(h)
+                t0 = tick(save_dir, "sdf grid", t0,
+                          " (sparse wire)" if sparse is not None
+                          else f" {sdf_grid.shape}", dispatch=h.seconds)
+                cpu = self._texmesh_geometry(
+                    save_dir, feat, sdf_grid, new_aabb, reso, n_faces,
+                    n_surf_pc, texture_reso, only_largest_cc,
+                    save_highres_mesh, save_voxel, tick, t0,
+                    sparse=sparse, quant=h.quant)
+                if cpu is None:   # empty surface, or sdf only: no bake
+                    continue
+                t0 = time.perf_counter_ns()
+                texel_handle = self._dispatch_texels_runs(
+                    feat, cpu["texels"], new_aabb)
+                tick(save_dir, "texel dispatch", t0,
+                     f" ({texel_handle[1]} texels, {len(texel_handle[0])} "
+                     "launches)", texels=texel_handle[1],
+                     launches=len(texel_handle[0]))
+                if pending is not None:
+                    self._submit_assemble(mtl_path=mtl_path,
+                                          file_format=file_format,
+                                          tick=tick, **pending)
+                pending = dict(save_dir=save_dir, cpu=cpu,
+                               texel_handle=texel_handle,
+                               texture_reso=texture_reso)
+        except Exception:
             if pending is not None:
                 self._submit_assemble(mtl_path=mtl_path,
                                       file_format=file_format, tick=tick,
                                       **pending)
-            pending = dict(save_dir=save_dir, cpu=cpu,
-                           texel_handle=texel_handle,
-                           texture_reso=texture_reso)
+            raise
         if defer_last:
             return pending
         if pending is not None:
@@ -956,49 +967,71 @@ class AETrainer:
 
     def pipelined_generate(self, chunks, sample_chunk, prepare_chunk,
                            reso: int, **decode_kwargs) -> None:
-        """Cross-chunk sample + decode schedule (the JAX package's, call
-        for call): per chunk, run its reverse chain (`sample_chunk`),
-        decode the previous chunk's meshes (its last assembly deferred),
-        then `prepare_chunk(desc, samples) -> (save_dirs, feats)` and queue
-        this chunk's geo grids.  decode_kwargs go to
+        """Cross-chunk sample + decode schedule: chunk k's mesh decode
+        (:meth:`decode_texmesh_many` over its queued geo grids, its last
+        assembly deferred to the next decode) runs on one decode worker
+        thread while the main thread runs chunk k+1's reverse chain.
+
+        Per chunk the main thread waits for the decode in flight (the span
+        `decode.wait`), then calls `sample_chunk(desc, hand_over)`, which
+        runs the chain and calls `hand_over()` where the previous chunk's
+        decode may start: before the chain's launches, or after them where
+        the chain captures a graph, which no other thread's launches may
+        meet (`sample_chunk` may leave it out: it is called once the chain
+        has returned).  Then `prepare_chunk(desc, samples) -> (save_dirs,
+        feats)` and this chunk's geo grids are queued.  At most one decode
+        is in flight; the last runs on the worker too, and this returns
+        once every decode and export has finished.  On an error what was
+        already sampled is still decoded and exported, then the first
+        error is raised here.  decode_kwargs go to
         :meth:`decode_texmesh_many`."""
-        pending = None
-        pending_asm = None
+        from concurrent.futures import ThreadPoolExecutor
+        pool = ThreadPoolExecutor(1, thread_name_prefix="sin3dm-decode")
+        ready = None    # a sampled chunk not yet handed over
+        running = None  # the decode in flight
+        asm = None      # the last finished decode's deferred assembly
+
+        def finish():
+            nonlocal running, asm
+            if running is not None:
+                fut, running = running, None
+                with profiling.span("decode.wait"):
+                    asm = fut.result()
+
+        def hand_over(last=False):
+            # the last decode takes a deferred assembly even without a
+            # chunk (an error before the chunk was prepared)
+            nonlocal ready, running, asm
+            if ready is None and not (last and asm):
+                return
+            (dirs, feats, handles), ready = ready or ([], [], []), None
+            running = pool.submit(
+                self.decode_texmesh_many, dirs, feats, reso,
+                grid_handles=handles, pending_in=asm, defer_last=not last,
+                **decode_kwargs)
+            asm = None
+
         try:
             for desc in chunks:
-                samples = sample_chunk(desc)
-                if pending is not None:
-                    pending_asm = self.decode_texmesh_many(
-                        pending[0], pending[1], reso,
-                        grid_handles=pending[2], pending_in=pending_asm,
-                        defer_last=True, **decode_kwargs)
-                    pending = None
+                finish()
+                samples = sample_chunk(desc, hand_over)
+                hand_over()
                 dirs, feats = prepare_chunk(desc, samples)
-                pending = (dirs, feats, self.dispatch_geo_grids(feats, reso))
-            if pending is not None:
-                self.decode_texmesh_many(
-                    pending[0], pending[1], reso, grid_handles=pending[2],
-                    pending_in=pending_asm, **decode_kwargs)
-                pending = None
-                pending_asm = None
+                ready = (dirs, feats, self.dispatch_geo_grids(feats, reso))
+            finish()
+            hand_over(last=True)
+            finish()
         except Exception:
             # export what was already sampled, then raise the first error
-            try:
-                if pending is not None:
-                    self.decode_texmesh_many(
-                        pending[0], pending[1], reso,
-                        grid_handles=pending[2], pending_in=pending_asm,
-                        **decode_kwargs)
-                elif pending_asm is not None:
-                    self._texmesh_assemble(
-                        mtl_path=decode_kwargs.get("mtl_path"),
-                        file_format=decode_kwargs.get("file_format", "obj"),
-                        tick=lambda save_dir, stage, t0, *a, **k: t0,
-                        **pending_asm)
-                self._drain_exports()
-            except Exception:
-                pass   # the original error is what the caller must see
+            for step in (finish, lambda: hand_over(last=True), finish,
+                         self._drain_exports):
+                try:
+                    step()
+                except Exception:
+                    pass   # the original error is what the caller must see
             raise
+        finally:
+            pool.shutdown()
 
     @torch.no_grad()
     def _dispatch_geo_grid(self, feat: Triplane, reso: int,

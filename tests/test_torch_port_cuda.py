@@ -875,3 +875,70 @@ def test_ddpm_graph_chain_equals_the_eager_chain(card, batch):
                 after["chain.graph_replays"]
                 - before["chain.graph_replays"]) == ((1, T - 1) if i == 0
                                                      else (0, T))
+
+
+# ---------------------------------------------------------------------------
+# generate's decode worker beside the chain (training/ae.py)
+# ---------------------------------------------------------------------------
+
+def test_generate_decodes_beside_the_chain(card, tmp_path):
+    """`generate` at the tests' small sizes, 3 samples in chunks of 2,
+    DDIM-10: the last chunk's chain captures its own graph (batch 1)
+    while the first chunk's decode waits to be handed over, then runs
+    beside it.  Every file equals what a serial `cli.decode` of the same
+    feat.npz files writes (the npz files' arrays: their zip entries carry
+    the time of writing), and a `decode.*` span of another thread than
+    the main one overlaps a `gen.chain` span."""
+    import os
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from sin3dm_tpu_torch.cli import sample as cli
+    from sin3dm_tpu_torch.core import profiling
+    tag = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "checkpoints", "towerruins")
+
+    def argv(out, *extra):
+        return ["--tag", tag, "--device", "cuda", "--output", str(out),
+                "--resize", "0.125", "0.125", "0.125", "--use_ddim", "true",
+                "--timestep_respacing", "ddim10", "--reso", "32",
+                "--texreso", "128", "--n_faces", "500", *extra]
+
+    out, serial = tmp_path / "gen", tmp_path / "serial"
+    profiling.collect()
+    profiling.record(True)
+    try:
+        paths, _ = cli.generate(cli.cfgmod.sample_args(argv(
+            out, "--n_samples", "3", "--pipeline_chunk", "2")))
+    finally:
+        profiling.record(False)
+    spans = profiling.collect()
+    assert len(paths) == 3
+    copies = []
+    for j in range(3):
+        d = serial / f"{j:03d}"
+        d.mkdir(parents=True)
+        shutil.copy(out / f"{j:03d}" / "feat.npz", d / "feat.npz")
+        copies.append(str(d / "feat.npz"))
+    cli.decode(cli.cfgmod.sample_args(argv(serial)), copies)
+    for j in range(3):
+        a, b = out / f"{j:03d}", serial / f"{j:03d}"
+        assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+        assert "object.obj" in os.listdir(a)
+        for name in os.listdir(a):
+            if name.endswith(".npz"):
+                with np.load(a / name) as x, np.load(b / name) as y:
+                    for k in x.files:
+                        np.testing.assert_array_equal(x[k], y[k])
+            else:
+                assert (a / name).read_bytes() == (b / name).read_bytes(), \
+                    f"{j:03d}/{name}"
+    main = threading.get_ident()
+    chains = [(s.start_ns, s.end_ns) for s in spans
+              if s.name == "gen.chain"]
+    worker = [(s.start_ns, s.end_ns) for s in spans
+              if s.name.startswith("decode.") and s.thread != main]
+    assert len(chains) == 2 and worker
+    assert any(min(b, d) > max(a, c) for a, b in chains for c, d in worker)

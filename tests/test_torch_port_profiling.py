@@ -242,6 +242,8 @@ def _generate(out, n, recording):
 
 TODAY = {"dir", "stage", "seconds", "dispatch", "texels", "launches"}
 WORKER = {"texel decode", "texture assembly", "export"}   # its stages
+DECODER = {"sdf grid", "voxel.npz", "marching cubes", "decimation",
+           "uv atlas + raster", "texel dispatch"}   # the decode worker's
 
 
 @pytest.fixture(scope="module")
@@ -259,9 +261,11 @@ def generated(tmp_path_factory):
 
 def test_generate_spans(generated):
     """One `gen.load`, one `gen.chain` a chunk, chunks x steps
-    `chain.step`s inside them, and the decode's stages, all on the main
-    thread; the export worker's stages are `export.<stage>` spans, one
-    set a sample, on the worker's thread."""
+    `chain.step`s inside them, `decode.grid dispatch` and `decode.wait`
+    (one a chunk) on the main thread and outside every `gen.chain`; the
+    decode's stages, one set a sample, on one decode worker thread; the
+    export worker's stages are `export.<stage>` spans, one set a sample,
+    on its own thread."""
     (stages, spans), _ = generated
     main = threading.get_ident()
     by = {}
@@ -281,6 +285,7 @@ def test_generate_spans(generated):
         assert all(s.start_ns <= c.start_ns <= c.end_ns <= s.end_ns
                    for c in inside)
     assert len(by["decode.grid dispatch"]) == 2
+    assert len(by["decode.wait"]) == 2
     assert len(by["decode.texel dispatch"]) == 2
     worker = [s for s in spans if s.name.startswith("export.")]
     assert sorted(s.name for s in worker) == sorted(
@@ -288,8 +293,24 @@ def test_generate_spans(generated):
     assert sorted(s.attrs["dir"] for s in worker) == sorted(
         [s.attrs["dir"] for s in by["decode.texel dispatch"]] * 3)
     assert all(s.thread != main for s in worker)
-    assert all(s.thread == main for s in spans if s not in worker)
+    on_main = {"decode.grid dispatch", "decode.wait"}
+    decode = [s for s in spans if s.name.startswith("decode.")
+              and s.name not in on_main]
+    assert sorted(s.name for s in decode) == sorted(
+        ["decode." + d for d in DECODER] * 2)
+    assert sorted(s.attrs["dir"] for s in decode) == sorted(
+        [s.attrs["dir"] for s in by["decode.texel dispatch"]]
+        * len(DECODER))
+    threads = {s.thread for s in decode}
+    assert len(threads) == 1 and main not in threads
+    assert not threads & {s.thread for s in worker}
+    assert all(s.thread == main for s in spans
+               if s not in worker and s not in decode)
     assert not set(by) & {"decode." + s for s in WORKER}
+    for s in spans:
+        if s.thread == main and s.name.startswith("decode."):
+            assert all(s.end_ns <= c.start_ns or c.end_ns <= s.start_ns
+                       for c in chains)
 
 
 def test_generate_stage_log_reads_its_spans(generated):

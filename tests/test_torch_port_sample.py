@@ -367,3 +367,101 @@ def test_mesh_decode_writes_what_generate_wrote(mesh_runs, tmp_path,
         with np.load(tmp_path / f"{j:03d}" / "voxel.npz") as a, \
                 np.load(out / f"{j:03d}" / "voxel.npz") as b:
             np.testing.assert_array_equal(a["vox_grid"], b["vox_grid"])
+
+
+def _serial_decode_equals(out, dst, samples):
+    """`cli.decode` (one serial `decode_texmesh_many` call) on copies of
+    the feat.npz files of `samples` under `out` writes, under `dst`, the
+    files that are under `out`: the same names, the same bytes (the npz
+    files' arrays: their zip entries carry the time of writing)."""
+    paths = []
+    for j in samples:
+        d = dst / f"{j:03d}"
+        d.mkdir(parents=True)
+        shutil.copy(out / f"{j:03d}" / "feat.npz", d / "feat.npz")
+        paths.append(str(d / "feat.npz"))
+    argv = [a for a in _argv(dst, *MESH) if a != "--vox"]
+    cli.decode(cli.cfgmod.sample_args(argv), paths)
+    for j in samples:
+        a, b = out / f"{j:03d}", dst / f"{j:03d}"
+        assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+        for name in os.listdir(a):
+            if name.endswith(".npz"):
+                with np.load(a / name) as x, np.load(b / name) as y:
+                    assert x.files == y.files
+                    for k in x.files:
+                        np.testing.assert_array_equal(x[k], y[k])
+            else:
+                assert (a / name).read_bytes() == (b / name).read_bytes(), \
+                    name
+
+
+def _decode_threads():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name.startswith("sin3dm-decode")]
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_generate_writes_what_a_serial_decode_writes(tmp_path, monkeypatch,
+                                                     chunk):
+    """generate's decode worker, beside the next chunk's chain, writes
+    what the serial `cli.decode` writes on the same feat.npz files: 3
+    samples in chunks of 1, and of 2 (the last chunk smaller)."""
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    monkeypatch.setenv("SIN3DM_SAMPLE_DTYPE", "train")
+    out = tmp_path / "gen"
+    argv = [a for a in _argv(out, *MESH, "--n_samples", "3",
+                             "--pipeline_chunk", str(chunk))
+            if a != "--vox"]
+    res = cli.main(argv)
+    assert len(res["paths"]) == 3
+    for j in range(3):
+        assert (out / f"{j:03d}" / "object.obj").exists()
+    _serial_decode_equals(out, tmp_path / "serial", range(3))
+    assert not _decode_threads()
+
+
+@pytest.mark.parametrize("where", ["decode", "chain"])
+def test_generate_exports_what_was_sampled_and_raises(tmp_path, monkeypatch,
+                                                      where):
+    """3 samples in chunks of 1.  An error in the decode worker on the
+    second sample, or in the main thread's chain of the third, reaches
+    generate's caller after every sample already drawn is exported: the
+    first sample's export deferred to the decode that failed, or the
+    second's deferred to the decode that was running, and the third's
+    decode after the worker's error.  No decode worker thread is left."""
+    from sin3dm_tpu_torch.training.ae import AETrainer as PortTrainer
+    monkeypatch.setenv("SIN3DM_DECODE_BF16", "0")
+    monkeypatch.setenv("SIN3DM_SAMPLE_DTYPE", "train")
+    geometry, build = PortTrainer._texmesh_geometry, cli._build_sampler
+
+    def failing_geometry(self, save_dir, *a, **k):
+        if save_dir.endswith("001"):
+            raise RuntimeError("failed on the second sample")
+        return geometry(self, save_dir, *a, **k)
+
+    def failing_sampler(args, *a, **k):
+        sampler, *rest = build(args, *a, **k)
+
+        def sample(seed, start, *b, **kw):
+            if start == 2:
+                raise RuntimeError("failed on the third sample")
+            return sampler(seed, start, *b, **kw)
+        return (sample, *rest)
+    if where == "decode":
+        monkeypatch.setattr(PortTrainer, "_texmesh_geometry",
+                            failing_geometry)
+    else:
+        monkeypatch.setattr(cli, "_build_sampler", failing_sampler)
+    out = tmp_path / "gen"
+    argv = [a for a in _argv(out, *MESH, "--n_samples", "3",
+                             "--pipeline_chunk", "1") if a != "--vox"]
+    with pytest.raises(RuntimeError, match="failed on the"):
+        cli.main(argv)
+    assert not _decode_threads()
+    failed = 1 if where == "decode" else 2
+    assert not (out / f"{failed:03d}" / "object.obj").exists()
+    monkeypatch.setattr(PortTrainer, "_texmesh_geometry", geometry)
+    _serial_decode_equals(out, tmp_path / "serial",
+                          [j for j in range(3) if j != failed])
