@@ -2,7 +2,8 @@
 
 Configuration keys: `tag` (a trained tag, relative to the checkout),
 `unet` and `ae` (the widths, which the reference reads from the tag's
-weights), `diffusion_steps`.  Mix keys: `respacing` ("ddimN"),
+weights), `diffusion_steps`.  Mix keys: `respacing` ("ddimN"; "ddpmN"
+in `generate_ddpm.py`'s mixes),
 `warm_steps` (the warm-up's DDIM steps: one short chain and one decode
 at the window's shapes), `pipeline_chunk`, `reso`, `texreso`, `n_faces`,
 `resize`, `nominal_s_per_sample` (the window draws ceil(seconds /
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -52,6 +54,16 @@ from perfbench.reference import autoencoder as RA
 from perfbench.reference import compare, mesh
 from perfbench.reference import diffusion as RD
 from perfbench.reference import precision, tree
+
+
+def chain_steps(respacing: str) -> int:
+    """The chain's steps in a mix's `respacing`: the digits after its
+    "ddim" (a respaced DDIM chain) or "ddpm" (the whole schedule)."""
+    m = re.fullmatch(r"(ddim|ddpm)(\d+)", respacing)
+    if m is None:
+        raise ValueError(f"respacing {respacing!r} is neither ddimN nor "
+                         "ddpmN")
+    return int(m.group(2))
 
 
 def chain_readings(gaps, meds) -> dict:
@@ -142,7 +154,7 @@ class Driver:
             "t0": t0, "samples": self.n,
             "metrics": {"gen_s_per_sample": (t1 - t0) / self.n},
             "attempted": self.n, "failed": 0, "stages": stages,
-            "chain_steps": int(self.mix["respacing"][len("ddim"):]),
+            "chain_steps": chain_steps(self.mix["respacing"]),
             "batch": int(self.mix["pipeline_chunk"]),
             "plane_sizes": self.sizes()[0],
             "k1_launches": conv3x3_rollout.launches - k1,
@@ -190,7 +202,7 @@ class Driver:
         meta, ae_flat = self.meta()
         PA = tree.to_device(ae_flat, dev)
         dirs = [os.path.join(self.out, f"{j:03d}") for j in range(self.n)]
-        steps = int(self.mix["respacing"][len("ddim"):])
+        steps = chain_steps(self.mix["respacing"])
         T = int(self.cfg["diffusion_steps"])
         qc = precision.rounding(control) if control else None
 

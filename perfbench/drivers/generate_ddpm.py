@@ -1,15 +1,21 @@
 """Mesh generation through the ancestral DDPM chain (`cli.sample`'s and
-the reference's default: no respacing, `--use_ddim false`), the eager
-chain that no CUDA graph replays: `generate.py`'s window, set-up and
-check with the DDPM chain in place of DDIM's.
+the reference's default: no respacing, `--use_ddim false`):
+`generate.py`'s window, set-up and check with the DDPM chain in place of
+DDIM's.
 
 The mix's `respacing` is "ddpm<T>", T the configuration's
-`diffusion_steps` (the CLI runs DDPM over the whole schedule); the
-warm-up is `generate.py`'s short DDIM chain and one decode at the
-window's shapes (the chain's eager step runs the same kernels).  The
-check is `generate.py`'s, with each sample's reference chain
-`reference/ddpm.py`'s: x_T and every step's noise from the sample's
-(seed, j) generator, in the sampler's order.
+`diffusion_steps` (the CLI runs DDPM over the whole schedule).  On the
+card the program replays the ancestral step from one CUDA graph, each
+step's noise drawn from the samples' generators into the graph's
+static buffers.  The warm-up is `generate.py`'s: a short DDIM chain,
+replayed from its own graph, and one decode at the window's shapes.
+The window is one `generate` call, as every `cli.sample` call is: its
+first chain captures the DDPM step's graph, and each later sample's
+chain runs beside the previous sample's decode on the decode worker.
+The check is `generate.py`'s, on the median of the window's samples,
+with each sample's reference chain `reference/ddpm.py`'s: x_T and every
+step's noise from the sample's (seed, j) generator, in the sampler's
+order, `reference_batch` samples a chain.
 """
 
 from __future__ import annotations

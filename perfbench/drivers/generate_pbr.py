@@ -74,7 +74,7 @@ class Driver(generate.Driver):
         """`generate.py`'s chain readings over the window's samples, and
         with `control` the control's."""
         dev = self.device
-        steps = int(self.mix["respacing"][len("ddim"):])
+        steps = generate.chain_steps(self.mix["respacing"])
         T = int(self.cfg["diffusion_steps"])
         qc = precision.rounding(control) if control else None
         chain, chain_c, med, med_c = [], [], [], []

@@ -44,16 +44,20 @@ def rounding(name: str):
 def exact_fp32():
     """The block with TF32 off for matmuls and cuDNN convolutions and
     with nondeterministic kernels allowed (the reference's setting);
-    the caller's flags are restored after."""
+    the caller's flags are restored after.  The deterministic setting is
+    switched only where the caller has it on: the switch imports
+    `torch._dynamo` on first use, ~10 s on the H100 machine."""
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32,
            torch.are_deterministic_algorithms_enabled())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.use_deterministic_algorithms(False)
+    if old[2]:
+        torch.use_deterministic_algorithms(False)
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old[0]
         torch.backends.cudnn.allow_tf32 = old[1]
-        torch.use_deterministic_algorithms(old[2])
+        if old[2]:
+            torch.use_deterministic_algorithms(True)

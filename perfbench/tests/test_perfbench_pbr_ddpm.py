@@ -3,11 +3,13 @@
 a checkout by files and entries alone: the program passes its limits,
 the control fails one of them, and a run whose written answer is
 altered comes out not correct (a map's texels, the DDPM chain's
-planes).  The limits of these test cells are set from these readings;
+planes), while in a window of three DDPM samples the median sample
+decides.  The limits of these test cells are set from these readings;
 the benchmark cells' from the card's, in PERF.md."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -39,6 +41,14 @@ CELLS = {
              limits={"chain_rel": 0.05, "occupancy_flips": 0.001,
                      "mesh_faults": 0}),
         "towerruins.gen-ddpm1000"),
+    # three samples a window (ceil(0.5 / 0.2)), one reference chain
+    "towerruins.gen-ddpm3-tiny": (
+        "towerruins", "gen-ddpm3-tiny",
+        dict(TINY, driver="generate_ddpm", respacing="ddpm1000",
+             nominal_s_per_sample=0.2, reference_batch=3,
+             limits={"chain_rel": 0.05, "occupancy_flips": 0.001,
+                     "mesh_faults": 0}),
+        "towerruins.gen-ddpm1000"),
 }
 
 
@@ -67,7 +77,8 @@ def run(bench, cell):
                        time.perf_counter())
 
 
-@pytest.mark.parametrize("name", list(CELLS))
+@pytest.mark.parametrize("name", ["towerruins-pbr.gen-pbr-tiny",
+                                  "towerruins.gen-ddpm-tiny"])
 def test_program_passes_and_control_fails(bench, name):
     cell = bench.cell(name)
     drv = cell.driver(cell, seed=SEED, device="cpu", root=bench.root)
@@ -114,6 +125,34 @@ def test_ddpm_answer_altered(bench, monkeypatch):
         return x._replace(xy=-x.xy)
     monkeypatch.setattr(sampling, "p_sample_loop", altered)
     assert run(bench, "towerruins.gen-ddpm-tiny")["correct"] is False
+
+
+@pytest.mark.parametrize("moved", [1, 2])
+def test_ddpm_median_sample_decides(bench, monkeypatch, capsys, moved):
+    """Three samples a window, the first `moved` of them written off
+    their chain: one such sample shows in `chain_rel_max` and the median
+    sample keeps the run correct; with two the median is one of them and
+    the run is not correct."""
+    from sin3dm_tpu_torch.diffusion import sampling
+    loop = sampling.p_sample_loop
+    chains = []
+
+    def altered(*a, **k):
+        x = loop(*a, **k)
+        chains.append(x)
+        return x._replace(xy=1.25 * x.xy) if len(chains) <= moved else x
+    monkeypatch.setattr(sampling, "p_sample_loop", altered)
+    r = run(bench, "towerruins.gen-ddpm3-tiny")
+    err = capsys.readouterr().err
+    assert len(chains) == r["attempted"] == 3 and r["failed"] == 0
+    widest = float(re.search(r"reading chain_rel_max: ([0-9.e+-]+)",
+                             err).group(1))
+    chain = r["checks"]["chain_rel"]
+    assert widest > chain["limit"]
+    assert all(c["value"] <= c["limit"] for k, c in r["checks"].items()
+               if k != "chain_rel")
+    assert (chain["value"] <= chain["limit"]) is (moved == 1)
+    assert r["correct"] is (moved == 1)
 
 
 def test_ddpm_cell_runs_the_ancestral_chain(bench, monkeypatch):
