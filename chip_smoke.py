@@ -7,7 +7,7 @@ Needs one CUDA card; exits non-zero without one, and outside a checkout
 of this repository.  Phases, each printing its results:
 
 1. device: name, power limit, torch/CUDA versions; TF32 off;
-2. build: both kernels with nvcc from `sin3dm_tpu_torch/csrc/`, in
+2. build: the kernels with nvcc from `sin3dm_tpu_torch/csrc/`, in
    parallel, and beside them the host geometry library with g++;
 3. kernels against their plain versions on the card at the main path's
    shapes, in bf16 and fp32, with error, tolerance and median times of
@@ -20,11 +20,16 @@ of this repository.  Phases, each printing its results:
    them, each triplane launch (weights packed once, as the UNet passes
    them) also against its three single-plane launches, bit for bit; at
    batch 2 (the main path's) with times, and checked once more, untimed,
-   at batch 1 (serving's chains and the bpd loop, phase 11);
+   at batch 1 (serving's chains and the bpd loop, phase 11); the triplane
+   norm kernel (`ops/tnorm.py`) at a forward's nine norms, batch 2 with
+   times and batch 1 untimed, against fp64 statistics, the plain apply
+   and torch's means, timed beside its plain version and the
+   `F.group_norm` route;
 4. main path: `cli.sample.main(--tag checkpoints/towerruins --vox
    --n_samples 2)` (DDPM-1000, batch 2, --reso 256) with the launch
-   counters set to 0 just before and read just after, output checks and
-   the chain/decode seconds;
+   counters set to 0 just before and read just after (K1 8 and the norm
+   kernel 9 a forward, in this and every later phase that counts K1),
+   output checks and the chain/decode seconds;
 4b. the same under `SIN3DM_STATS_CHAIN=1`, then under
    `SIN3DM_FUSED_ACT=1`, with per-form K1 launch counts;
 4c. one full-width forward of the towerruins UNet at batch 2: the stats
@@ -252,6 +257,10 @@ INT8_SHARE_BOUND = 2e-3
 # sum |y| (sum y^2) per channel; against the plain version's stats, also
 # the per-element y differences the K1 tolerance allows, summed
 STATS_TOL = 1e-5
+# the triplane norm kernel's (A, B) and the plain version's, each against
+# fp64 statistics: fp32 sums of up to 128 x 92 x 6 values in two orders,
+# relative to |A| and to B's terms (seen ~1e-6)
+TNORM_F32_TOL = 1e-5
 # the UNet's configurations, as the environment selects them
 CONFIGS = {
     "default": {"SIN3DM_STATS_CHAIN": "0", "SIN3DM_FUSED_ACT": "0"},
@@ -778,6 +787,129 @@ def check_k2_shapes(ae_params, cases):
     return out
 
 
+def tnorm_library(xs, gam, bet, film):
+    """The yardstick: `F.group_norm` of each plane (channels first), the
+    FiLM, `F.silu`, then the six means, in bf16."""
+    import torch
+    import torch.nn.functional as F
+    C = xs[0].shape[-1]
+    ys = []
+    for x, g, b in zip(xs, gam, bet):
+        y = F.group_norm(x.permute(0, 3, 1, 2), 32, g.to(x.dtype),
+                         b.to(x.dtype)).permute(0, 2, 3, 1)
+        if film is not None:
+            y = y * (1.0 + film[:, None, None, :C]) + film[:, None, None, C:]
+        ys.append(F.silu(y))
+    return ys, [y.mean(dim=d) for y in ys for d in (-2, -3)]
+
+
+def check_tnorm(B: int, timed: bool = True) -> dict:
+    """The triplane norm kernel (`ops/tnorm.py`) at the nine norms of a
+    main-path forward (the tag's planes at batch B, its widths, the FiLM
+    on each out norm, the means but on the final norm): one launch each;
+    (A, B) within TNORM_F32_TOL of fp64, as the plain version's; y equal
+    bit for bit to the plain apply of the kernel's (A, B); the stacked
+    means within one bf16 rounding of torch's means of the kernel's y;
+    `max_abs_err` y's largest difference from the plain version's.
+    Timed: device time and events, the plain version's and the library's
+    route's device time, the bound (perfbench/counts/tnorm.py's bytes).
+    Returns {norm: numbers}."""
+    import torch
+    from sin3dm_tpu_torch.core import nn
+    from sin3dm_tpu_torch.ops import tnorm
+    sys.path.insert(0, ROOT)
+    from perfbench.counts.tnorm import tnorm_launch
+    g = torch.Generator().manual_seed(23)
+    levels = {0: ((92, 128), (92, 92), (128, 92)),
+              1: ((46, 64), (46, 46), (64, 46))}
+    norms = []
+    for i, (lv, cin, cout) in enumerate(((0, 64, 64), (1, 64, 128),
+                                         (1, 128, 128), (0, 192, 64))):
+        norms += [(f"block {i} in", lv, cin, False, True),
+                  (f"block {i} out", lv, cout, True, True)]
+    norms.append(("final", 0, 64, False, False))
+    out = {}
+    for name, lv, C, film, means in norms:
+        key = f"{name} (level {lv}, C {C})"
+        xs = [(torch.randn(B, R, S, C, generator=g) * 1.7 + 0.4).to(
+            "cuda", torch.bfloat16) for R, S in levels[lv]]
+        gam = [(1.0 + 0.2 * torch.randn(C, generator=g)).cuda()
+               for _ in range(3)]
+        bet = [(0.2 * torch.randn(C, generator=g)).cuda() for _ in range(3)]
+        fm = ((0.3 * torch.randn(B, 2 * C, generator=g)).to(
+            "cuda", torch.bfloat16) if film else None)
+        n0 = tnorm.tnorm_silu.launches
+        ys, coef, stacks = tnorm.tnorm_silu(xs, gam, bet, fm, means)
+        torch.cuda.synchronize()
+        if tnorm.tnorm_silu.launches != n0 + 1:
+            fail(f"tnorm {key}: {tnorm.tnorm_silu.launches - n0} launches")
+        pys, pcoef, _ = tnorm.tnorm_silu_reference(xs, gam, bet, fm, means)
+        worst = 0.0
+        err = max((y.float() - py.float()).abs().max().item()
+                  for y, py in zip(ys, pys))
+        for i, x in enumerate(xs):
+            xg = x.double().reshape(B, -1, 32, C // 32)
+            m = xg.mean(dim=(1, 3))
+            var = ((xg - m[:, None, :, None]) ** 2).mean(dim=(1, 3))
+            A = torch.rsqrt(var + 1e-5).repeat_interleave(
+                C // 32, -1) * gam[i].double()
+            mc = m.repeat_interleave(C // 32, -1)
+            Bc = bet[i].double() - mc * A
+            one = torch.ones_like(A)
+            if film:
+                one = 1.0 + fm[:, :C].double()
+                A, Bc = A * one, Bc * one + fm[:, C:].double()
+            sd = var.sqrt().repeat_interleave(C // 32, -1)
+            tol_b = TNORM_F32_TOL * (Bc.abs() + (mc.abs() + sd) * A.abs()
+                                     + one.abs())
+            for side, c in (("kernel", coef), ("plain", pcoef)):
+                ea = ((c[i, 0].double() - A).abs() / A.abs()).max().item()
+                eb = ((c[i, 1].double() - Bc).abs() / tol_b).max().item()
+                if ea > TNORM_F32_TOL or eb > 1.0:
+                    fail(f"tnorm {key} plane {i}: the {side} (A, B) off "
+                         f"fp64: {ea:.2e} relative, {eb:.2f} of B's bound")
+                worst = max(worst, ea)
+            if not torch.equal(ys[i], nn.apply_film_coeffs(x, coef[i, 0],
+                                                           coef[i, 1])):
+                fail(f"tnorm {key} plane {i}: y is not the plain apply of "
+                     "the kernel's (A, B)")
+        for y, pair in zip(ys, stacks or []):
+            for st, dim in zip(pair, (-2, -3)):
+                want = tnorm.stack3(y.mean(dim=dim)).float()
+                tol = BF16_ULP * want.abs() + 1e-5 * y.float().abs().mean()
+                if not ((st.float() - want).abs() <= tol).all():
+                    fail(f"tnorm {key}: a mean off torch's by more than "
+                         "one bf16 rounding")
+        row = {"coef_rel_err_vs_fp64": worst, "max_abs_err": err}
+        if timed:
+            nbytes = tnorm_launch(B, levels[lv], C, film, means)
+            b_ms, by = bound(0.0, nbytes, PEAK_BF16_FLOPS)
+            row.update(
+                device_ms=device_ms(lambda: tnorm.tnorm_silu(
+                    xs, gam, bet, fm, means), "sin3dm_tnorm"),
+                ms=time_ms(lambda: tnorm.tnorm_silu(xs, gam, bet, fm,
+                                                    means)),
+                plain_device_ms=device_ms(lambda: tnorm.tnorm_silu_reference(
+                    xs, gam, bet, fm, means)),
+                library_device_ms=device_ms(lambda: tnorm_library(
+                    xs, gam, bet, fm)),
+                bound_ms=b_ms, bound_by=by)
+        print(f"tnorm {key}, batch {B}: (A, B) within {worst:.2e} of fp64, "
+              f"y the plain apply of the kernel's (A, B) bit for bit (within "
+              f"{err:.3g} of "
+              "the plain version's y), means within a bf16 rounding (ok)")
+        if timed:
+            print(f"tnorm {key}, batch {B}: "
+                  f"device {row['device_ms'] * 1e3:.2f} us (events "
+                  f"{row['ms'] * 1e3:.1f} us), plain "
+                  f"{row['plain_device_ms'] * 1e3:.1f} us, library "
+                  f"{row['library_device_ms'] * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({by}): "
+                  f"{b_ms / row['device_ms']:.1%} of the bound")
+        out[key] = row
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Where a chain step's time goes
 # ---------------------------------------------------------------------------
@@ -884,20 +1016,43 @@ def configuration(name: str):
 def reset_counts() -> None:
     from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
+    from sin3dm_tpu_torch.ops.tnorm import tnorm_silu
     conv3x3_rollout.launches = 0
     conv3x3_rollout.form_launches = {}
     skip_mlp.launches = 0
     skip_mlp.shape_launches = {}
+    tnorm_silu.launches = 0
 
 
 def read_counts() -> dict:
     from sin3dm_tpu_torch.ops.fused_conv import conv3x3_rollout
     from sin3dm_tpu_torch.ops.fused_mlp import skip_mlp
+    from sin3dm_tpu_torch.ops.tnorm import tnorm_silu
     return {"k1": conv3x3_rollout.launches,
             "k1_forms": dict(conv3x3_rollout.form_launches),
             "k2": skip_mlp.launches,
             "k2_shapes": {shape_key(*k): v for k, v in
-                          skip_mlp.shape_launches.items()}}
+                          skip_mlp.shape_launches.items()},
+            "tnorm": tnorm_silu.launches}
+
+
+def want_tnorm(ucfg, k1_forms: dict) -> int:
+    """The norm kernel's launches where K1 launched `k1_forms` in the
+    configuration the environment selects now: the forwards that many
+    K1 launches make, times `tnorm_launches_per_forward` (9 in the
+    default configuration)."""
+    from sin3dm_tpu_torch.models.unet import (k1_launches_per_forward,
+                                              tnorm_launches_per_forward)
+    per = k1_launches_per_forward(ucfg)
+    return (sum(k1_forms.values()) // per * tnorm_launches_per_forward(ucfg)
+            if per else 0)
+
+
+def argv_tnorm(argv, k1_forms: dict) -> int:
+    """`want_tnorm` for the UNet configuration of a `cli.sample` argv."""
+    from sin3dm_tpu_torch.cli import sample as cli
+    return want_tnorm(cli._unet_config(cli.cfgmod.sample_args(argv)),
+                      k1_forms)
 
 
 def shape_key(rows: int, cin: int, cout: int) -> str:
@@ -908,8 +1063,9 @@ def shape_key(rows: int, cin: int, cout: int) -> str:
 def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
               occupancy: bool = True, grids: list = None):
     """`cli.main(argv + --output <tmp>)` with the launch counts set to 0
-    just before and read just after; checks the per-form K1 and the K2
-    counts, the feat.npz and voxel grids (and each grid's occupancy).
+    just before and read just after; checks the per-form K1, the K2 and
+    the norm kernel's counts (`want_tnorm`: 9 a forward by default), the
+    feat.npz and voxel grids (and each grid's occupancy).
     Returns (main's result, counts, per-sample feat planes); each voxel
     grid is appended to `grids` where given."""
     import numpy as np
@@ -917,13 +1073,16 @@ def drive_vox(label: str, argv, want_forms: dict, want_k2: int,
     from sin3dm_tpu_torch.cli import sample as cli
     out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_")
     try:
+        want_tn = argv_tnorm(argv, want_forms)
         reset_counts()
         res = cli.main(argv + ["--output", out_dir])
         torch.cuda.synchronize()
         counts = read_counts()
         print(f"{label}: K1 launches by form {counts['k1_forms']} (want "
-              f"{want_forms}), K2 launches {counts['k2']} (want {want_k2})")
-        if counts["k1_forms"] != want_forms or counts["k2"] != want_k2:
+              f"{want_forms}), K2 launches {counts['k2']} (want {want_k2}), "
+              f"norm kernel launches {counts['tnorm']} (want {want_tn})")
+        if counts["k1_forms"] != want_forms or counts["k2"] != want_k2 \
+                or counts["tnorm"] != want_tn:
             fail(f"{label}: the path did not launch the kernels as "
                  "expected")
         feats = []
@@ -1187,13 +1346,15 @@ def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
                n_faces: int, slabs: int):
     """`cli.main(argv + --output <dir>)`, the mesh path, with the launch
     counts set to 0 just before and read just after.  Checks K1 against
-    `want_k1`, K2 against `slabs` geo launches per sample plus each
-    sample's texel chunks, and each sample's outputs.  Returns (main's
+    `want_k1` (and the norm kernel against `want_tnorm`), K2 against
+    `slabs` geo launches per sample plus each sample's texel chunks, and
+    each sample's outputs.  Returns (main's
     result, counts, output dir, per-sample stage seconds); the caller
     removes the directory."""
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
     out_dir = tempfile.mkdtemp(prefix="sin3dm_chip_smoke_mesh_")
+    want_tn = argv_tnorm(argv, want_k1)
     reset_counts()
     res = cli.main(argv + ["--output", out_dir])
     torch.cuda.synchronize()
@@ -1207,8 +1368,10 @@ def drive_mesh(argv, want_k1: dict, aabb, reso: int, texreso: int,
     print(f"mesh path: K1 launches by form {counts['k1_forms']} (want "
           f"{want_k1}), K2 launches {counts['k2']} (want {want_k2}: {n} x "
           f"{slabs} geo-grid slabs + texel chunks of "
-          f"{sorted(texels.values())} texels)")
-    if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2:
+          f"{sorted(texels.values())} texels), norm kernel launches "
+          f"{counts['tnorm']} (want {want_tn})")
+    if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2 \
+            or counts["tnorm"] != want_tn:
         fail("mesh path: the path did not launch the kernels as expected")
     per_sample = {}
     for j in range(n):
@@ -3279,13 +3442,16 @@ def p11_vox(label: str, tag: str, out: str, want_forms: dict,
     import numpy as np
     import torch
     from sin3dm_tpu_torch.cli import sample as cli
+    want_tn = argv_tnorm(["--tag", tag] + P11_VOX, want_forms)
     reset_counts()
     res = cli.main(["--tag", tag, "--output", out] + P11_VOX)
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"{label}: K1 launches by form {counts['k1_forms']} (want "
-          f"{want_forms}), K2 {counts['k2']} (want {want_k2})")
-    if counts["k1_forms"] != want_forms or counts["k2"] != want_k2:
+          f"{want_forms}), K2 {counts['k2']} (want {want_k2}), norm "
+          f"kernel {counts['tnorm']} (want {want_tn})")
+    if counts["k1_forms"] != want_forms or counts["k2"] != want_k2 \
+            or counts["tnorm"] != want_tn:
         fail(f"{label}: the path did not launch the kernels as expected")
     arrays = {}
     reso = cli.cfgmod.sample_args(["--tag", tag] + P11_VOX).reso
@@ -3495,14 +3661,16 @@ def phase11b(tmp: str, root: str, tag: str, ref: str, ucfg,
                   if e["stage"] == "texel dispatch"]
         want_k1 = {f: m * steps * n for f, m in per_form.items()}
         want_k2 = n * slabs + sum(texel_chunks(t) for t in texels)
+        want_tn = want_tnorm(ucfg, want_k1)
         print(f"11b {label}: {secs:.3f} s ({secs / n:.3f} s per sample); "
               f"K1 launches by form {counts['k1_forms']} (want {want_k1}), "
               f"K2 {counts['k2']} (want {want_k2}: {n} x {slabs} geo-grid "
-              f"slabs + texel chunks of {texels} texels)")
+              f"slabs + texel chunks of {texels} texels), norm kernel "
+              f"{counts['tnorm']} (want {want_tn})")
         print(f"11b {label} stage seconds per sample: "
               + json.dumps(p11_stage_seconds(stages)))
         if counts["k1_forms"] != want_k1 or counts["k2"] != want_k2 \
-                or len(texels) != n:
+                or counts["tnorm"] != want_tn or len(texels) != n:
             fail(f"11b {label}: the request did not launch the kernels as "
                  "expected")
         urls = (json.loads(resp)["glbs"] if as_json else
@@ -3516,7 +3684,7 @@ def phase11b(tmp: str, root: str, tag: str, ref: str, ucfg,
             print(f"11b {label}: GLBs {checked}")
         out["requests"][label] = {"seconds": secs, "per_sample": secs / n,
                                   "stages": p11_stage_seconds(stages)}
-        out["launches"][label] = {"k1": counts["k1"], "k2": counts["k2"]}
+        out["launches"][label] = {k: counts[k] for k in ("k1", "k2", "tnorm")}
 
     def feats(t, j=0):
         with np.load(os.path.join(t, "app_results", f"{j:03d}",
@@ -3605,31 +3773,34 @@ def phase11b(tmp: str, root: str, tag: str, ref: str, ucfg,
                   for e in logs[(t, s)][-1] if e["stage"] == "texel dispatch"]
         want_k1 = {f: m * 100 * 2 for f, m in per_form.items()}
         want_k2 = 2 * slabs + sum(texel_chunks(t) for t in texels)
+        want_tn = want_tnorm(ucfg, want_k1)
         diffs = {s: same(feats(pair[s]), alone[s]) for s in pair}
         print(f"11b parallel pair: {secs:.3f} s for both; answers "
               f"{[results[s][0] for s in pair]}, each request "
               f"{[round(results[s][2], 3) for s in pair]} s; K1 launches by "
               f"form {counts['k1_forms']} (want {want_k1}), K2 "
-              f"{counts['k2']} (want {want_k2}); feat.npz against the same "
+              f"{counts['k2']} (want {want_k2}), norm kernel "
+              f"{counts['tnorm']} (want {want_tn}); feat.npz against the same "
               f"request alone, largest difference {diffs} (want 0)")
         for s in pair:
             print(f"11b parallel seed {s} stage seconds per sample: "
                   + json.dumps(p11_stage_seconds(logs[(pair[s], s)][-1])))
         if any(results[s][0] != 200 for s in pair) \
                 or counts["k1_forms"] != want_k1 \
-                or counts["k2"] != want_k2 or any(diffs.values()):
+                or counts["k2"] != want_k2 or counts["tnorm"] != want_tn \
+                or any(diffs.values()):
             fail("11b: the parallel requests")
         out["requests"]["parallel pair"] = {
             "seconds": secs, "per_request": [results[s][2] for s in pair]}
-        out["launches"]["parallel pair"] = {"k1": counts["k1"],
-                                            "k2": counts["k2"]}
+        out["launches"]["parallel pair"] = {
+            k: counts[k] for k in ("k1", "k2", "tnorm")}
     finally:
         cli.generate = generate
         srv.shutdown()
         srv.server_close()
         server.join(timeout=60)
     out["total"] = {k: sum(v[k] for v in out["launches"].values())
-                    for k in ("k1", "k2")}
+                    for k in ("k1", "k2", "tnorm")}
     return out
 
 
@@ -3879,13 +4050,16 @@ def phase11c(ucfg) -> dict:
         secs = time.perf_counter() - t0
         counts = read_counts()
     want = {f: m * 1000 for f, m in k1_launches_by_form(ucfg).items()}
+    want_tn = want_tnorm(ucfg, want)
     vals = {k: bpd[k].cpu().numpy() for k in bpd}
     print(f"11c calc_bpd_loop (T 1000, batch 1, bf16): total_bpd "
           f"{float(vals['total_bpd'][0]):.6f}, prior_bpd "
           f"{float(vals['prior_bpd'][0]):.3e}, {secs:.3f} s; vb, xstart_mse, "
           f"mse {vals['vb'].shape}; K1 launches by form "
-          f"{counts['k1_forms']} (want {want}), K2 {counts['k2']} (want 0)")
-    if counts["k1_forms"] != want or counts["k2"] != 0:
+          f"{counts['k1_forms']} (want {want}), K2 {counts['k2']} (want 0), "
+          f"norm kernel {counts['tnorm']} (want {want_tn})")
+    if counts["k1_forms"] != want or counts["k2"] != 0 \
+            or counts["tnorm"] != want_tn:
         fail("11c: calc_bpd_loop did not launch K1 as expected")
     if any(not np.isfinite(v).all() for v in vals.values()) or \
             vals["vb"].shape != (1, 1000):
@@ -4444,6 +4618,7 @@ def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int, n: int,
     nccl = label == "13b"
     argv = ["--tag", TAG, *P12_DDIM, "--n_samples", str(n)]
     args = cli.cfgmod.sample_args(argv)
+    want_tn = argv_tnorm(argv, want_k1)
     dp_flag = ["--sample_devices", "0" if nccl else str(n)]
     runs = {}
     for name, extra in (("dp", dp_flag),
@@ -4472,12 +4647,13 @@ def p12_sampling(tmp: str, want_k1: dict, aabb, slabs: int, n: int,
               f"samples {names}, K1 launches by form {got['k1_forms']} "
               f"(want {want_k1}), K2 {got['k2']} (want {want_k2}: {slabs} "
               f"geo slabs + the texel chunks of {sorted(texels.values())} "
-              "texels)")
+              f"texels), norm kernel {got['tnorm']} (want {want_tn})")
         if rk["device"] != want_dev or rk["backend"] != (
                 "nccl" if nccl else "gloo"):
             fail(f"{label} rank {r}: on {rk['device']} over "
                  f"{rk['backend']}, not on {want_dev}")
-        if got["k1_forms"] != want_k1 or got["k2"] != want_k2:
+        if got["k1_forms"] != want_k1 or got["k2"] != want_k2 \
+                or got["tnorm"] != want_tn:
             fail(f"{label} rank {r}: the kernels did not launch as "
                  "expected")
         for p in rk["paths"]:
@@ -4946,7 +5122,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         geo = pool.submit(native.build)
-        built = _build.build(["fused_conv", "fused_mlp"])
+        built = _build.build(["fused_conv", "fused_mlp", "tnorm"])
         print(f"build: {time.perf_counter() - t0:.1f} s (parallel nvcc)")
         geo_build = geo.result()
     print(f"build: geometry library (g++ {' '.join(geo_build['flags'])}) "
@@ -4983,6 +5159,10 @@ def main(argv=None) -> int:
     k2_mesh = {"geo_decoder": k2_shapes["geo slab"],
                "tex_decoder": k2_shapes["texel chunk"]}
     k2_surf = k2_shapes["evaluate surface chunk"]
+    tn = check_tnorm(B)
+    # serving, the app's DDPM chain and the bpd loop run batch-1 chains
+    tn_b1 = check_tnorm(1, timed=False)
+    print("triplane norm kernel: " + json.dumps(tn))
 
     # 4. main path, default configuration
     vox = ["--tag", TAG, "--vox", "--n_samples", "2"]
@@ -5158,6 +5338,13 @@ def main(argv=None) -> int:
                   k1p_all["device_ms"] / k1p_all["default_device_ms"])}
     print("K1' against the default form: " + ", ".join(
         f"{k} {v:.3f}" for k, v in ratios.items()))
+    # the norm kernel per forward at batch 2: its nine launches summed
+    tn_all = {k: sum(r[k] for r in tn.values()) for k in (
+        "ms", "device_ms", "bound_ms")}
+    tn_all.update(max_abs_err=max(r["max_abs_err"] for r in tn.values()),
+                  plain_ms=sum(r["plain_device_ms"] for r in tn.values()),
+                  library_ms=sum(r["library_device_ms"] for r in tn.values()),
+                  bound_by="bytes")
     lib_keys = ("device_ms", "host_ms", "library_default_ms",
                 "library_benchmark_ms", "library_device_ms")
     src = "sin3dm_tpu_torch/csrc/fused_conv.cu"
@@ -5235,6 +5422,19 @@ def main(argv=None) -> int:
             ae8["launches_by_stage"]["surface_chunk_geo"], k2_surf,
             device_ms=k2_surf["device_ms"],
             library_device_ms=k2_surf["library_device_ms"]),
+        row("tnorm_silu", "sin3dm_tpu_torch/csrc/tnorm.cu",
+            "none (XLA fuses sin3dm_tpu/core/nn.py:group_norm32_film_silu)",
+            main_counts["tnorm"], tn_all, device_ms=tn_all["device_ms"],
+            library_device_ms=tn_all["library_ms"],
+            max_abs_err_batch1=max(r["max_abs_err"] for r in tn_b1.values()),
+            coef_rel_err_vs_fp64=max(r["coef_rel_err_vs_fp64"]
+                                     for r in tn.values()),
+            launches_stats_chain=opt_in["stats chain"]["tnorm"],
+            launches_fused_act=opt_in["fused act"]["tnorm"],
+            launches_mesh=mesh_counts["tnorm"],
+            launches_sample_after_training=counts6["tnorm"],
+            launches_serving=served["total"]["tnorm"],
+            launches_dp_sampling_by_rank=[r["tnorm"] for r in dp12]),
     ]
     print("kernel times: K1 per UNet forward at batch 2 (8 triplane "
           "launches), K1' per stats-chained forward (3 act+stats + 3 "
@@ -5273,7 +5473,10 @@ def main(argv=None) -> int:
           "beside the kernels' run; the row of pbr's mr head (cout 2) "
           "counts its launches in phase 8h's CLI run and reso-64 decode, "
           "by the wrapper's count by shape, and times it over the geo "
-          "slab's rows")
+          "slab's rows; the norm kernel's row (tnorm_silu) sums the nine "
+          "norms of a forward at batch 2 (each timed alone), 'plain_ms' "
+          "and 'library_ms' the plain version's and the F.group_norm "
+          "route's device time, its 'launches' from the main path's run")
     print("mesh path per sample (s): " + json.dumps(
         {"generate_s_per_sample": mesh_res["seconds"] / len(
             mesh_res["paths"]), "stages": mesh_secs,

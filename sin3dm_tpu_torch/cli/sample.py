@@ -155,7 +155,8 @@ def build_model(args, device: torch.device, spatial_group=None):
             ti.load_torch_file(model_path), ucfg)
     else:
         tree, _ = ckpt.load_tree(model_path)
-    params = pack_params(unet_params_from_jax(tree, device))
+    params = pack_params(unet_params_from_jax(tree, device),
+                         rollout=ucfg.rollout)
 
     respacing = args.timestep_respacing if args.use_ddim else ""
     sched = cfgmod.schedule_from_args(args, respacing=respacing)
@@ -402,7 +403,8 @@ def _rank(group, args, data_parallel: bool) -> dict:
               None if data_parallel else group)
     c = profiling.counters()
     out["launches"] = {"k1": c["k1.launches"], "k1_forms": c["k1.forms"],
-                       "k2": c["k2.launches"], "k2_shapes": c["k2.shapes"]}
+                       "k2": c["k2.launches"], "k2_shapes": c["k2.shapes"],
+                       "tnorm": c["tnorm.launches"]}
     out["collectives"] = c["collectives"]
     out["device"], out["backend"] = str(group.device), group.backend
     return out
@@ -423,7 +425,7 @@ def launch(args, n_dp: int, n_sp: int) -> dict:
               f"{n} ranks")
     if args.device == "cuda":
         from ..ops import _build
-        _build.build(["fused_conv", "fused_mlp"])
+        _build.build(["fused_conv", "fused_mlp", "tnorm"])
     if not args.vox:
         from ..geometry import native
         native.build()

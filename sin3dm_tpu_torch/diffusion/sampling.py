@@ -49,7 +49,7 @@ import torch
 from ..core import profiling
 from ..core.rng import step_generator
 from ..core.triplane import Triplane
-from ..ops import fused_conv
+from ..ops import fused_conv, tnorm
 from ..parallel.halo import gather_plane, shard_plane
 from .gaussian import CondFn, DiffusionConfig, ModelFn, ddim_sample_step, \
     p_sample_step
@@ -231,8 +231,9 @@ class StepGraph:
     that capture needs, on a side stream, with `noise` as the caller
     filled it; the state then holds its result) and then the capture, in
     `thread_local` mode, so that other threads' device work neither
-    breaks it nor is refused.  K1's launches in the capture count at each
-    replay (`ops.fused_conv.tallied`).  `graph`: a stand-in for
+    breaks it nor is refused.  K1's and the norm kernel's launches in the
+    capture count at each replay (`ops.fused_conv.tallied`,
+    `ops.tnorm.tallied`).  `graph`: a stand-in for
     `torch.cuda.CUDAGraph()` (tests)."""
 
     def __init__(self, step, x: Triplane, t: int,
@@ -248,7 +249,8 @@ class StepGraph:
                        else (self.state, self.tb, noise))
         with _side_stream(device):
             first = step(*self.inputs)
-            with fused_conv.tallied() as self.k1:
+            with fused_conv.tallied() as self.k1, \
+                    tnorm.tallied() as self.tnorm:
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     for s, n in zip(self.state, step(*self.inputs)):
@@ -270,6 +272,7 @@ class StepGraph:
         with profiling.span("chain.replay", t=t):
             self.graph.replay()
         fused_conv.count_launches(self.k1)
+        tnorm.count_launches(self.tnorm)
         _count_graph("replays")
 
     def result(self) -> Triplane:

@@ -12,7 +12,12 @@ border fix-ups (`_colvar_vecs` / `_rowvar_vecs`).  Two forwards:
 - `unet_apply`, the sampler's, under `torch.no_grad`: every 3x3 conv goes
   through the kernel K1 (`ops/fused_conv.py`), which adds the fix-ups in
   its epilogue, in bf16 and in fp32 alike, a triplane conv's three planes
-  in one call (`conv3x3_rollout_triplane`: one launch in bf16).  With
+  in one call (`conv3x3_rollout_triplane`: one launch in bf16).  The 3-tap
+  products read their kernels packed once ("k1v", `ops.pack_params` with
+  `rollout`) where the tree has them.  In a bf16 torso with `fast_norm`
+  each triplane norm (GroupNorm32 [+ FiLM] + SiLU) is one call of
+  `ops.tnorm.tnorm_silu` (one launch on the card), which also gives the
+  next rollout conv its six axis means, stacked for the products.  With
   `UNetConfig.fused_conv` off (JAX's field; `SIN3DM_FUSED_CONV=0` in
   `cli/sample.py`) it runs the training forward's convs instead, and the
   opt-in configurations below do not apply, as in JAX.
@@ -69,7 +74,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import nn
 from ..core.triplane import Triplane
-from ..ops.fused_conv import conv3x3_rollout_triplane, form_name
+from ..ops.fused_conv import (conv3x3_rollout_triplane, form_name,
+                               pack_taps, rollout_taps)
+from ..ops.tnorm import stack3, tnorm_silu
 from ..parallel import halo
 from ..parallel.mesh import all_reduce_many, gather_slot
 
@@ -163,18 +170,29 @@ def init_unet(gen: torch.Generator, cfg: UNetConfig) -> Dict:
 # Rollout conv
 # ---------------------------------------------------------------------------
 
+def _axis_means(t: Triplane, dtype=None, sizes=None):
+    """The six axis means the rollout reads, (m_yz_d, m_xz_d, m_xy_w,
+    m_yz_w, m_xy_h, m_xz_h): yz, xz and xy over their dim -2, then yz, xy
+    and xz over their dim -3, in `dtype` (torch.mean's) where given.
+    With `sizes`, the whole planes' (H, W, D) of a t sharded on dim 1,
+    the dim -3 means are this shard's sums over the whole lengths (W, H,
+    H), which the ranks then add up."""
+    d2 = [v.mean(dim=-2, dtype=dtype) for v in (t.yz, t.xz, t.xy)]
+    if sizes is None:
+        return (*d2, *[v.mean(dim=-3, dtype=dtype)
+                       for v in (t.yz, t.xy, t.xz)])
+    H, W, _ = sizes
+    return (*d2, *[v.sum(dim=-3, dtype=dtype) / n
+                   for v, n in ((t.yz, W), (t.xy, H), (t.xz, H))])
+
+
 def _rollout_cat(t: Triplane) -> Triplane:
     """Each plane concatenated with broadcast axis-means of the other two
     (the materialized form; used only for planes smaller than 2)."""
     B = t.xy.shape[0]
     H, W, D = t.sizes
     C = t.channels
-    m_yz_d = t.yz.mean(dim=-2)
-    m_xz_d = t.xz.mean(dim=-2)
-    m_xy_w = t.xy.mean(dim=-2)
-    m_yz_w = t.yz.mean(dim=-3)
-    m_xy_h = t.xy.mean(dim=-3)
-    m_xz_h = t.xz.mean(dim=-3)
+    m_yz_d, m_xz_d, m_xy_w, m_yz_w, m_xy_h, m_xz_h = _axis_means(t)
     xy = torch.cat([t.xy, m_yz_d[:, None].expand(B, H, W, C),
                     m_xz_d[:, :, None].expand(B, H, W, C)], dim=-1)
     xz = torch.cat([t.xz, m_xy_w[:, :, None].expand(B, H, D, C),
@@ -184,32 +202,46 @@ def _rollout_cat(t: Triplane) -> Triplane:
     return Triplane(xy, xz, yz)
 
 
-def _conv1d3_multi(vec: torch.Tensor, k3s) -> torch.Tensor:
-    """Several 3-tap zero-padded 1D convs of one vector in one product.
-
-    vec `[B, L, C]`; k3s: V kernels each `[3, C, Co]`.  Returns the packed
-    `[B, L, V, Co]` (the layout K1 takes for col3/row3)."""
-    B, L, C = vec.shape
-    z = vec.new_zeros((B, 1, C))
-    stack = torch.stack([torch.cat([z, vec[:, :-1]], dim=1), vec,
-                         torch.cat([vec[:, 1:], z], dim=1)], dim=2)
-    kp = torch.stack([k.to(vec.dtype) for k in k3s], dim=2)  # [3,C,V,Co]
+def _conv1d3_packed(stack: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
+    """Several 3-tap zero-padded 1D convs in one product: stack `[B, L, 3,
+    C]` (`stack3` of the vector), kp `[3, C, V, Co]` (`pack_taps` of V
+    kernels).  Returns the packed `[B, L, V, Co]` (the layout K1 takes for
+    col3/row3)."""
+    B, L = stack.shape[:2]
     V, Co = kp.shape[2], kp.shape[3]
-    out = stack.reshape(B * L, 3 * C) @ kp.reshape(3 * C, V * Co)
+    out = stack.reshape(B * L, -1) @ kp.reshape(-1, V * Co)
     return out.reshape(B, L, V, Co)
+
+
+def _conv1d3_multi(vec: torch.Tensor, k3s) -> torch.Tensor:
+    """`_conv1d3_packed` of vec `[B, L, C]` and V kernels each `[3, C,
+    Co]`, packed now."""
+    return _conv1d3_packed(stack3(vec), pack_taps(k3s, vec.dtype))
 
 
 def _colvar_vecs(vec: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
     """(s_top, s_full, s_bot) packed `[B, W, 3, Co]`: the 3x3 contribution
     of an image constant along rows (vec `[B, W, C]` broadcast over H)."""
-    return _conv1d3_multi(vec, (kb[1:].sum(0), kb.sum(0), kb[:2].sum(0)))
+    return _conv1d3_multi(vec, rollout_taps(kb, rows=False))
 
 
 def _rowvar_vecs(vec: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
     """(r_left, r_full, r_right) packed `[B, H, 3, Co]` for an image
     constant along columns (vec `[B, H, C]` broadcast over W)."""
-    return _conv1d3_multi(vec, (kb[:, 1:].sum(1), kb.sum(1),
-                                kb[:, :2].sum(1)))
+    return _conv1d3_multi(vec, rollout_taps(kb, rows=True))
+
+
+def _taps(pp: Dict, C: int, col_first: bool, dtype):
+    """One plane's (col3, row3) kernels `[3, C, 3, Co]` in `dtype`: its
+    "k1v" pack where the tree has one in that dtype, else packed now from
+    the broadcast blocks of its weight."""
+    kv = pp.get("k1v")
+    if kv is not None and kv.dtype == dtype:
+        return kv[0], kv[1]
+    w = pp["w"]
+    cs, rs = (C, 2 * C) if col_first else (2 * C, C)
+    return (pack_taps(rollout_taps(w[:, :, cs:cs + C], False), dtype),
+            pack_taps(rollout_taps(w[:, :, rs:rs + C], True), dtype))
 
 
 def _act_triplane(t: Triplane, act: Dict) -> Triplane:
@@ -221,35 +253,32 @@ def _act_triplane(t: Triplane, act: Dict) -> Triplane:
 
 def _tconv_apply_rollout_fast(p: Dict, t: Triplane, act: Dict = None,
                               skip: Triplane = None,
-                              emit_stats: bool = False):
+                              emit_stats: bool = False, stacks=None):
     """Rollout 3x3 conv without the 3x-channel concat, through K1.
 
     With `act` (per-plane folded GN32[+FiLM]+SiLU coefficients) `t` is
     the raw pre-norm triplane: K1′ activates its input, while the axis
     means here are taken of the activation applied in t's dtype, as in
-    the JAX package.  `skip` is added in the kernel's epilogue; with
-    `emit_stats` the result is (Triplane, {plane: [B, 2, Co] stats})."""
+    the JAX package.  `stacks`: the six axis means already `stack3`ed in
+    `_axis_means`' order (the norm kernel's), else taken here.  `skip` is
+    added in the kernel's epilogue; with `emit_stats` the result is
+    (Triplane, {plane: [B, 2, Co] stats})."""
     C = t.channels
-    ta = _act_triplane(t, act) if act is not None else t
-    m_yz_d = ta.yz.mean(dim=-2)   # [B, W, C]
-    m_xz_d = ta.xz.mean(dim=-2)   # [B, H, C]
-    m_xy_w = ta.xy.mean(dim=-2)   # [B, H, C]
-    m_yz_w = ta.yz.mean(dim=-3)   # [B, D, C]
-    m_xy_h = ta.xy.mean(dim=-3)   # [B, W, C]
-    m_xz_h = ta.xz.mean(dim=-3)   # [B, D, C]
+    if stacks is None:
+        ta = _act_triplane(t, act) if act is not None else t
+        stacks = [stack3(m) for m in _axis_means(ta)]
+    s_yz_d, s_xz_d, s_xy_w, s_yz_w, s_xy_h, s_xz_h = stacks
 
-    def vecs(k, col_vec, row_vec, col_first: bool):
-        w = p[k]["w"]
-        cs, rs = (C, 2 * C) if col_first else (2 * C, C)
-        return (_colvar_vecs(col_vec, w[:, :, cs:cs + C]),
-                _rowvar_vecs(row_vec, w[:, :, rs:rs + C]))
+    def vecs(k, col, row):
+        kc, kr = _taps(p[k], C, k == "xy", t.dtype)
+        return _conv1d3_packed(col, kc), _conv1d3_packed(row, kr)
 
     # block order per plane follows _rollout_cat:
     #   xy: [self, col-varying (m_yz_d), row-varying (m_xz_d)]
     #   xz: [self, row-varying (m_xy_w), col-varying (m_yz_w)]
     #   yz: [self, row-varying (m_xy_h), col-varying (m_xz_h)]
-    cr = (vecs("xy", m_yz_d, m_xz_d, True), vecs("xz", m_yz_w, m_xy_w, False),
-          vecs("yz", m_xz_h, m_xy_h, False))
+    cr = (vecs("xy", s_yz_d, s_xz_d), vecs("xz", s_yz_w, s_xy_w),
+          vecs("yz", s_xz_h, s_xy_h))
     out = conv3x3_rollout_triplane(
         list(t), [p[k]["w"][:, :, :C] for k in PLANES],
         [p[k].get("b") for k in PLANES], [c for c, _ in cr],
@@ -262,12 +291,18 @@ def _tconv_apply_rollout_fast(p: Dict, t: Triplane, act: Dict = None,
     return Triplane(*out)
 
 
+def _fast_rollout(p: Dict, t: Triplane, rollout: bool) -> bool:
+    """Whether `_tconv_apply` takes t through `_tconv_apply_rollout_fast`
+    (and so reads its axis means)."""
+    return rollout and p["xy"]["w"].shape[0] == 3 and min(t.sizes) >= 2
+
+
 def _tconv_apply(p: Dict, t: Triplane, rollout: bool,
-                 act: Dict = None) -> Triplane:
+                 act: Dict = None, stacks=None) -> Triplane:
     is3 = p["xy"]["w"].shape[0] == 3
     if rollout:
-        if is3 and min(t.sizes) >= 2:
-            return _tconv_apply_rollout_fast(p, t, act=act)
+        if _fast_rollout(p, t, rollout):
+            return _tconv_apply_rollout_fast(p, t, act=act, stacks=stacks)
         if act is not None:
             t = _act_triplane(t, act)
             act = None
@@ -315,12 +350,7 @@ def _tconv_apply_rollout_train(p: Dict, t: Triplane) -> Triplane:
     `F.conv2d` of each plane's own channels, then the col- and
     row-varying contributions, then the bias, in t's dtype."""
     C = t.channels
-    m_yz_d = t.yz.mean(dim=-2)   # [B, W, C]
-    m_xz_d = t.xz.mean(dim=-2)   # [B, H, C]
-    m_xy_w = t.xy.mean(dim=-2)   # [B, H, C]
-    m_yz_w = t.yz.mean(dim=-3)   # [B, D, C]
-    m_xy_h = t.xy.mean(dim=-3)   # [B, W, C]
-    m_xz_h = t.xz.mean(dim=-3)   # [B, D, C]
+    m_yz_d, m_xz_d, m_xy_w, m_yz_w, m_xy_h, m_xz_h = _axis_means(t)
 
     def one(pp, x, col_vec, row_vec, col_first: bool):
         w = pp["w"]
@@ -364,14 +394,10 @@ def _tconv_apply_rollout_sharded(p: Dict, t: Triplane, sg) -> Triplane:
     ones this shard's rows of the whole vector."""
     C = t.channels
     H, W, D = _global_sizes(t, sg)
-    f32 = torch.float32
-    red = all_reduce_many(sg, [
-        gather_slot(sg, t.yz.mean(dim=-2, dtype=f32)),   # [B, w, C]
-        gather_slot(sg, t.xz.mean(dim=-2, dtype=f32)),   # [B, h, C]
-        gather_slot(sg, t.xy.mean(dim=-2, dtype=f32)),   # [B, h, C]
-        t.yz.sum(dim=-3, dtype=f32) / W,                 # [B, D, C]
-        t.xy.sum(dim=-3, dtype=f32) / H,                 # [B, W, C]
-        t.xz.sum(dim=-3, dtype=f32) / H])                # [B, D, C]
+    means = _axis_means(t, torch.float32, (H, W, D))
+    # the means along the sharded axes gathered whole, over it summed
+    red = all_reduce_many(sg, [gather_slot(sg, m) for m in means[:3]]
+                          + list(means[3:]))
     whole = [torch.cat(list(v.unbind(0)), dim=1) for v in red[:3]]
     m_yz_d, m_xz_d, m_xy_w, m_yz_w, m_xy_h, m_xz_h = [
         v.to(t.dtype) for v in whole + red[3:]]
@@ -450,6 +476,33 @@ def _tnorm_silu_fast(p: Dict, t: Triplane, film=None, sg=None) -> Triplane:
                       for k, x in zip(PLANES, t)])
 
 
+def _tnorm_silu(p: Dict, t: Triplane, fast_norm: bool, k1: bool,
+                sg=None, film: torch.Tensor = None, conv: Dict = None,
+                rollout: bool = False):
+    """GN32 [+ FiLM] + SiLU of a triplane: (activated triplane, stacks).
+    film: `emb_out` `[B, 1, 1, 2C]` (scale then shift).  In K1's forward
+    of a bf16 torso with `fast_norm` one `tnorm_silu` call (one launch on
+    the card), whose stacks are the six axis means `stack3`ed in
+    `_axis_means`' order where the rollout conv `conv` reads them; else
+    the eager norm (over `sg`'s shards where given), and stacks None."""
+    if k1 and fast_norm and t.dtype == torch.bfloat16:
+        means = conv is not None and _fast_rollout(conv, t, rollout)
+        ys, _, st = tnorm_silu(list(t), [p[k]["g"] for k in PLANES],
+                               [p[k]["b"] for k in PLANES], film, means)
+        if not means:
+            return Triplane(*ys), None
+        (xy_r, xy_c), (xz_r, xz_c), (yz_r, yz_c) = st
+        return Triplane(*ys), (yz_r, xz_r, xy_r, yz_c, xy_c, xz_c)
+    pair = None if film is None else tuple(torch.chunk(film, 2, dim=-1))
+    if fast_norm:
+        return _tnorm_silu_fast(p, t, film=pair, sg=sg), None
+    h = _tnorm_apply(p, t, sg)
+    if pair is not None:
+        scale, shift = pair
+        h = h.map(lambda v: v * (1.0 + scale) + shift)
+    return h.map(nn.silu), None
+
+
 def _use_fused_act() -> bool:
     """`SIN3DM_FUSED_ACT=1`: norm + FiLM + SiLU applied inside K1′."""
     return os.environ.get("SIN3DM_FUSED_ACT", "0") == "1"
@@ -525,7 +578,7 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
     if k1:
         conv = _tconv_apply
     else:
-        def conv(pp, tt, ro):
+        def conv(pp, tt, ro, stacks=None):
             return _tconv_apply_train(pp, tt, ro, sg)
     if k1 and _use_fused_act():
         # norm + FiLM + SiLU as coefficients applied inside K1′
@@ -544,29 +597,20 @@ def _resblock_apply(p: Dict, t: Triplane, emb: torch.Tensor,
             else t
         return h + skip
 
-    if fast_norm:
-        h = _tnorm_silu_fast(p["in_norm"], t, sg=sg)
-    else:
-        h = _tnorm_apply(p["in_norm"], t, sg).map(nn.silu)
-    h = conv(p["in_conv"], h, rollout)
+    def norm(pn, h, pc, film=None):
+        return _tnorm_silu(pn, h, fast_norm, k1, sg, film, pc, rollout)
+
+    h, st = norm(p["in_norm"], t, p["in_conv"])
+    h = conv(p["in_conv"], h, rollout, stacks=st)
 
     emb_out = nn.linear(p["emb"], nn.silu(emb)).to(h.dtype)
     emb_out = emb_out[:, None, None, :]  # [B,1,1,C or 2C]
     if use_scale_shift:
-        scale, shift = torch.chunk(emb_out, 2, dim=-1)
-        if fast_norm:
-            h = _tnorm_silu_fast(p["out_norm"], h, film=(scale, shift),
-                                 sg=sg)
-        else:
-            h = _tnorm_apply(p["out_norm"], h, sg)
-            h = h.map(lambda v: v * (1.0 + scale) + shift).map(nn.silu)
+        h, st = norm(p["out_norm"], h, p["out_conv"], film=emb_out)
     else:
         h = h.map(lambda v: v + emb_out)
-        if fast_norm:
-            h = _tnorm_silu_fast(p["out_norm"], h, sg=sg)
-        else:
-            h = _tnorm_apply(p["out_norm"], h, sg).map(nn.silu)
-    h = conv(p["out_conv"], h, rollout)
+        h, st = norm(p["out_norm"], h, p["out_conv"])
+    h = conv(p["out_conv"], h, rollout, stacks=st)
 
     skip = conv(p["skip"], t, False) if "skip" in p else t
     return h + skip
@@ -685,10 +729,8 @@ def _forward(params: Dict, cfg: UNetConfig, x: Triplane,
     if h_stats is not None:
         h = _act_triplane(h, _tnorm_coeffs_from_stats(
             params["out"]["norm"], h_stats, h.sizes))
-    elif cfg.fast_norm:
-        h = _tnorm_silu_fast(params["out"]["norm"], h, sg=sg)
     else:
-        h = _tnorm_apply(params["out"]["norm"], h, sg).map(nn.silu)
+        h, _ = _tnorm_silu(params["out"]["norm"], h, cfg.fast_norm, k1, sg)
     h = _tconv_apply(params["out"]["conv"], h, rollout=False)
     return h.to(x.dtype)
 
@@ -745,3 +787,21 @@ def k1_launches_by_form(cfg: UNetConfig) -> Dict[str, int]:
 def k1_launches_per_forward(cfg: UNetConfig) -> int:
     """How many K1 calls one forward makes, all forms together."""
     return sum(k1_launches_by_form(cfg).values())
+
+
+def tnorm_launches_per_forward(cfg: UNetConfig) -> int:
+    """How many `ops.tnorm.tnorm_silu` calls (one launch each on the card)
+    one sampler forward makes in the configuration the environment
+    selects now: where K1 runs a bf16 torso with `fast_norm`, the two
+    norms of each resblock that is neither stats-chained nor fused-act
+    (`k1_launches_by_form`'s test), and the final norm unless the last
+    block is chained; else none.  The same assumption on plane sizes."""
+    if not (cfg.fused_conv and cfg.fast_norm
+            and cfg.compute_dtype == torch.bfloat16):
+        return 0
+    fused_act, chain = _use_fused_act(), _stats_chain_on(cfg)
+    n, chained = 0, False
+    for cin, cout in _block_widths(cfg):
+        chained = chain and cfg.rollout and cin <= 128 and cout <= 128
+        n += 0 if chained or fused_act else 2
+    return n + (0 if chained else 1)

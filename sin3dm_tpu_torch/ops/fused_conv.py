@@ -142,6 +142,37 @@ def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
     return out.reshape(9, co_pad, n_cc, KCH).permute(2, 0, 1, 3).contiguous()
 
 
+def rollout_taps(kb: torch.Tensor, rows: bool):
+    """The three 3-tap kernels `[3, C, Co]` of one broadcast block kb
+    `[3, 3, C, Co]` of a rollout conv's weight: for an image constant
+    along rows (a col-varying block, col3's (s_top, s_full, s_bot)) the
+    sums of kb's rows 1-2, 0-2 and 0-1; along columns (row3's (r_left,
+    r_full, r_right), `rows`) the same over its columns."""
+    if rows:
+        return kb[:, 1:].sum(1), kb.sum(1), kb[:, :2].sum(1)
+    return kb[1:].sum(0), kb.sum(0), kb[:2].sum(0)
+
+
+def pack_taps(k3s, dtype) -> torch.Tensor:
+    """Three 3-tap kernels each `[3, C, Co]` in `dtype`, stacked `[3, C, 3,
+    Co]`: the weight of one product of `stack3`'s `[., 3C]` lines
+    (`models/unet.py:_conv1d3_packed`)."""
+    return torch.stack([k.to(dtype) for k in k3s], dim=2)
+
+
+def pack_rollout_taps(w: torch.Tensor, col_first: bool) -> torch.Tensor:
+    """A rollout 3x3 conv's col3 and row3 kernels, bf16 `[2, 3, C, 3, Co]`
+    (col, then row), from its weight w `[3, 3, 3C, Co]` whose input blocks
+    are (own, col-varying, row-varying) where `col_first`, else (own,
+    row-varying, col-varying): the weights' part of the rollout products,
+    packed once (`ops.pack_params`)."""
+    C = w.shape[2] // 3
+    cs, rs = (C, 2 * C) if col_first else (2 * C, C)
+    return torch.stack([
+        pack_taps(rollout_taps(w[:, :, cs:cs + C], False), torch.bfloat16),
+        pack_taps(rollout_taps(w[:, :, rs:rs + C], True), torch.bfloat16)])
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 

@@ -16,7 +16,9 @@ def _copy(tmp_path):
 def test_target_names_every_source_and_header():
     headers = sorted(_build.CSRC.glob("*.cuh"))
     assert headers, "the kernels share at least one csrc/*.cuh header"
-    for name in ("fused_conv", "fused_mlp"):
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert {"fused_conv", "fused_mlp", "tnorm"} <= set(names)
+    for name in names:
         t = _build.target(name)
         assert t.parent == _build.BUILD_DIR and t.name.startswith(name + "-")
         assert _build.target(name) == t          # stable across calls

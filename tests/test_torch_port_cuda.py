@@ -777,6 +777,164 @@ def test_ae_train_step_card_vs_cpu(card, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# The triplane norm kernel (ops/tnorm.py)
+# ---------------------------------------------------------------------------
+
+# the towerruins tag's planes at the UNet's two levels
+TNORM_PLANES = {0: ((92, 128), (92, 92), (128, 92)),
+                1: ((46, 64), (46, 46), (64, 46))}
+# fp32 GroupNorm statistics of up to 128 x 92 x 6 values, summed in fp32
+# in the kernel's order or in torch's: both lie well within 1e-5 of the
+# fp64 statistics, relative to |A| and to B's terms (seen: ~1e-6)
+TNORM_F32_TOL = 1e-5
+
+
+def _tnorm_case(card, level, C, film, B=1, seed=0):
+    g = torch.Generator().manual_seed(seed + 10 * level + C)
+    xs = [(_randn(g, B, R, S, C, scale=1.7) + 0.4).to(card, torch.bfloat16)
+          for R, S in TNORM_PLANES[level]]
+    gam = [(1.0 + _randn(g, C, scale=0.2)).to(card) for _ in range(3)]
+    bet = [_randn(g, C, scale=0.2).to(card) for _ in range(3)]
+    fm = (_randn(g, B, 2 * C, scale=0.3).to(card, torch.bfloat16)
+          if film else None)
+    return xs, gam, bet, fm
+
+
+def _coef_fp64(x, gamma, beta, film):
+    """(A, B, mean, std) `[B, C]` of one plane in fp64 on the card, and the
+    scale (1 + film scale): the truth both fp32 versions estimate."""
+    B_, R, S, C = x.shape
+    xg = x.double().reshape(B_, R * S, 32, C // 32)
+    mean = xg.mean(dim=(1, 3))
+    var = ((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+    rep = C // 32
+    m = mean.repeat_interleave(rep, dim=-1)
+    A = torch.rsqrt(var + 1e-5).repeat_interleave(rep, dim=-1) \
+        * gamma.double()
+    Bc = beta.double() - m * A
+    one = torch.ones_like(A)
+    if film is not None:
+        one = 1.0 + film[:, :C].double()
+        A, Bc = A * one, Bc * one + film[:, C:].double()
+    return A, Bc, m, var.sqrt().repeat_interleave(rep, dim=-1), one
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("level,C,film,means", [
+    (0, 64, False, True),     # level-0 in norm
+    (0, 64, True, True),      # level-0 out norm (FiLM)
+    (1, 64, False, True),     # level-1 in norm of the 64 -> 128 block
+    (1, 128, True, True),
+    (1, 128, False, True),
+    (0, 192, False, True),    # the skip concat's in norm
+    (0, 64, False, False),    # the final norm: no rollout conv after it
+])
+def test_tnorm_main_path_shapes(card, level, C, film, means, B):
+    """The norm kernel at the tag's plane sizes of both levels in bf16,
+    at batch 1 and at the main path's batch 2,
+    one launch a triplane, against its plain version on the card: (A, B)
+    within TNORM_F32_TOL of the fp64 statistics, as the plain version's;
+    y equal bit for bit to the plain apply of the kernel's own (A, B)
+    (the same fp32 operations, each rounded to bf16 as torch rounds
+    them); the stacked means within one bf16 rounding of torch's means of
+    the kernel's y (fp32 sums in two orders, each rounded once), with
+    their zero taps exactly zero."""
+    from sin3dm_tpu_torch.core import nn
+    from sin3dm_tpu_torch.ops import tnorm
+    xs, gam, bet, fm = _tnorm_case(card, level, C, film, B=B)
+    before = tnorm.tnorm_silu.launches
+    ys, coef, stacks = tnorm.tnorm_silu(xs, gam, bet, fm, means)
+    torch.cuda.synchronize()
+    assert tnorm.tnorm_silu.launches == before + 1
+    _, pcoef, _ = tnorm.tnorm_silu_reference(xs, gam, bet, fm, means)
+    for i, x in enumerate(xs):
+        A64, B64, m64, sd64, one = _coef_fp64(x, gam[i], bet[i], fm)
+        tol_b = TNORM_F32_TOL * (B64.abs() + (m64.abs() + sd64)
+                                 * A64.abs() + one.abs())
+        for c in (coef, pcoef):
+            assert ((c[i, 0].double() - A64).abs()
+                    <= TNORM_F32_TOL * A64.abs()).all()
+            assert ((c[i, 1].double() - B64).abs() <= tol_b).all()
+        assert torch.equal(ys[i], nn.apply_film_coeffs(x, coef[i, 0],
+                                                       coef[i, 1]))
+    if not means:
+        assert stacks is None
+        return
+    for y, pair in zip(ys, stacks):
+        for st, dim in zip(pair, (-2, -3)):
+            want = tnorm.stack3(y.mean(dim=dim)).float()
+            got = st.float()
+            assert (got[:, 0, 0] == 0).all() and (got[:, -1, 2] == 0).all()
+            tol = BF16_ULP * want.abs() + 1e-5 * y.float().abs().mean()
+            assert ((got - want).abs() <= tol).all()
+
+
+def test_tnorm_is_the_same_every_run(card):
+    """Fixed-order sums, no atomics: two launches give the same bits."""
+    from sin3dm_tpu_torch.ops import tnorm
+    xs, gam, bet, fm = _tnorm_case(card, 0, 192, True)
+    a = tnorm.tnorm_silu(xs, gam, bet, fm)
+    b = tnorm.tnorm_silu(xs, gam, bet, fm)
+    assert all(torch.equal(u, v) for u, v in zip(a[0], b[0]))
+    assert torch.equal(a[1], b[1])
+    assert all(torch.equal(u, v) for p, q in zip(a[2], b[2])
+               for u, v in zip(p, q))
+
+
+@pytest.mark.parametrize("B,sizes,C", [
+    (2, ((1, 1), (1, 3), (2, 1)), 32),     # bands with no rows, C = 32
+    (3, ((9, 17), (9, 5), (17, 5)), 96),   # 24-channel slices, B = 3
+    (1, ((300, 7), (300, 40), (7, 40)), 128),
+    # bands too large to stage in shared memory: read from device memory
+    (1, ((1024, 96), (1024, 8), (96, 8)), 192),
+    # slices wider than 32 channels: 40 (C 160, 320), 72 (C 288), 248
+    # (C 992, 31 threads a pixel), one 32-channel group (C 1024)
+    (2, ((9, 17), (9, 5), (17, 5)), 160),
+    (1, ((46, 64), (46, 46), (64, 46)), 320),
+    (2, ((5, 13), (5, 3), (13, 3)), 288),
+    (1, ((23, 32), (23, 23), (32, 23)), 992),
+    (2, ((6, 9), (6, 4), (9, 4)), 1024),
+])
+def test_tnorm_edge_shapes(card, B, sizes, C):
+    """Planes shorter than the cluster's 8 bands, odd sizes, other
+    widths and batches, bands the kernel cannot stage, with the FiLM: as
+    `test_tnorm_main_path_shapes` against the plain version."""
+    from sin3dm_tpu_torch.core import nn
+    from sin3dm_tpu_torch.ops import tnorm
+    g = torch.Generator().manual_seed(B * 100 + C)
+    xs = [_randn(g, B, R, S, C).to(card, torch.bfloat16) for R, S in sizes]
+    gam = [(1.0 + _randn(g, C, scale=0.2)).to(card) for _ in range(3)]
+    bet = [_randn(g, C, scale=0.2).to(card) for _ in range(3)]
+    fm = _randn(g, B, 2 * C, scale=0.3).to(card, torch.bfloat16)
+    ys, coef, stacks = tnorm.tnorm_silu(xs, gam, bet, fm)
+    _, pcoef, _ = tnorm.tnorm_silu_reference(xs, gam, bet, fm)
+    torch.cuda.synchronize()
+    scale = pcoef.abs().amax(dim=-1, keepdim=True)
+    assert ((coef - pcoef).abs() <= 1e-4 * scale).all()
+    for i, x in enumerate(xs):
+        assert torch.equal(ys[i], nn.apply_film_coeffs(x, coef[i, 0],
+                                                       coef[i, 1]))
+    for y, pair in zip(ys, stacks):
+        for st, dim in zip(pair, (-2, -3)):
+            want = tnorm.stack3(y.mean(dim=dim)).float()
+            tol = BF16_ULP * want.abs() + 1e-5 * y.float().abs().mean()
+            assert ((st.float() - want).abs() <= tol).all()
+
+
+def test_tnorm_refuses_what_it_does_not_take(card):
+    from sin3dm_tpu_torch.ops import tnorm
+    xs, gam, bet, _ = _tnorm_case(card, 1, 64, False)
+    with pytest.raises(ValueError):
+        tnorm.tnorm_silu([x.float() for x in xs], gam, bet)
+    g = torch.Generator().manual_seed(5)
+    C = 32 * 33       # a slice of lcm(8, 33) = 264 channels: too wide
+    x = [_randn(g, 1, 4, 4, C).to(card, torch.bfloat16) for _ in range(3)]
+    with pytest.raises(ValueError):
+        tnorm.tnorm_silu(x, [torch.ones(C, device=card)] * 3,
+                         [torch.zeros(C, device=card)] * 3)
+
+
+# ---------------------------------------------------------------------------
 # The chain's step replayed as a CUDA graph (diffusion/sampling.py)
 # ---------------------------------------------------------------------------
 
@@ -786,8 +944,8 @@ def test_graph_chain_equals_the_eager_chain(card, masked):
     bf16 forward: the sampler's graph chain (one capture at the first
     chain's first step, replays after) against the eager loop, bit for
     bit, on 3 seeds, plain and masked (`--inpaint`'s y0/mask); per chain
-    K1 launches 800, all of the default form, and the graph's captures
-    and replays 1 and 99, then 0 and 100."""
+    K1 launches 800, all of the default form, the norm kernel's 900, and
+    the graph's captures and replays 1 and 99, then 0 and 100."""
     import os
     from sin3dm_tpu_torch.cli import sample as cli
     from sin3dm_tpu_torch.core import profiling
@@ -820,6 +978,7 @@ def test_graph_chain_equals_the_eager_chain(card, masked):
                     for g, w in zip(got, want))
         assert worst == 0.0, f"seed {seed}: largest difference {worst}"
         assert after["k1.launches"] - before["k1.launches"] == 800
+        assert after["tnorm.launches"] - before["tnorm.launches"] == 900
         assert {f: n - before["k1.forms"].get(f, 0)
                 for f, n in after["k1.forms"].items()
                 if n != before["k1.forms"].get(f, 0)} == {"default": 800}
@@ -837,8 +996,8 @@ def test_ddpm_graph_chain_equals_the_eager_chain(card, batch):
     sampler's graph chain, whose steps read each step's noise drawn from
     the samples' generators into the graph's static buffers, against
     the eager `p_sample_loop`, bit for bit, on 3 seeds at batch 1 and 2;
-    per chain K1 launches 8 a step, and the graph's captures and replays
-    1 and 49, then 0 and 50."""
+    per chain K1 launches 8 a step, the norm kernel's 9, and the graph's
+    captures and replays 1 and 49, then 0 and 50."""
     import os
     from sin3dm_tpu_torch.cli import sample as cli
     from sin3dm_tpu_torch.core import profiling
@@ -867,6 +1026,7 @@ def test_ddpm_graph_chain_equals_the_eager_chain(card, batch):
                     for g, w in zip(got, want))
         assert worst == 0.0, f"seed {seed}: largest difference {worst}"
         assert after["k1.launches"] - before["k1.launches"] == 8 * T
+        assert after["tnorm.launches"] - before["tnorm.launches"] == 9 * T
         assert {f: n - before["k1.forms"].get(f, 0)
                 for f, n in after["k1.forms"].items()
                 if n != before["k1.forms"].get(f, 0)} == {"default": 8 * T}

@@ -123,10 +123,12 @@ def test_follow_profiler_records_only_under_a_trace():
 
 def test_counters_read_the_attributes(monkeypatch):
     from sin3dm_tpu_torch.diffusion import sampling
-    from sin3dm_tpu_torch.ops import fused_conv, fused_mlp
+    from sin3dm_tpu_torch.ops import fused_conv, fused_mlp, tnorm
     from sin3dm_tpu_torch.parallel import mesh
     k1, k2 = fused_conv.conv3x3_rollout, fused_mlp.skip_mlp
+    tn = tnorm.tnorm_silu
     monkeypatch.setattr(k1, "launches", 5, raising=False)
+    monkeypatch.setattr(tn, "launches", 7, raising=False)
     monkeypatch.setattr(k1, "form_launches", {"plain": 5}, raising=False)
     monkeypatch.setattr(k2, "launches", 2, raising=False)
     monkeypatch.setattr(k2, "shape_launches", {(8, 4, 1): 2},
@@ -142,7 +144,8 @@ def test_counters_read_the_attributes(monkeypatch):
                 "k2.shapes": dict(k2.shape_launches),
                 "collectives": dict(mesh.COUNTS),
                 "chain.graph_captures": sampling._graph_counts["captures"],
-                "chain.graph_replays": sampling._graph_counts["replays"]}
+                "chain.graph_replays": sampling._graph_counts["replays"],
+                "tnorm.launches": tn.launches}
     before = profiling.counters()
     assert before == attrs()
     # the plain path (CPU tensors) launches no kernel and counts none
@@ -158,13 +161,17 @@ def test_counters_read_the_attributes(monkeypatch):
                        {"w": torch.randn(16, 1, generator=g),
                         "b": torch.zeros(1)}]}
     k2(head, torch.randn(6, 8, generator=g))
+    tn([torch.randn(1, 3, 2, 32, generator=g) for _ in range(3)],
+       [torch.ones(32)] * 3, [torch.zeros(32)] * 3)
     assert profiling.counters() == before == attrs()
     # one launch of each, as the card's wrappers count it
     fused_conv._count(None, None, False)
     fused_mlp._count((6, 8, 1))
+    tnorm._count()
     after = profiling.counters()
     assert after == attrs()
     assert after["k1.launches"] == 6 and after["k2.launches"] == 3
+    assert after["tnorm.launches"] == 8
     assert after["k2.shapes"] == {(8, 4, 1): 2, (6, 8, 1): 1}
     assert sum(after["k1.forms"].values()) == 6
     assert (after["chain.graph_captures"],
